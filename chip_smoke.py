@@ -1,0 +1,635 @@
+#!/usr/bin/env python3
+"""Smoke run of rsq_tpu_torch on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py [--profile]
+
+Phases (any failure raises and exits nonzero; nothing is caught):
+  1. device  -- require CUDA; print the card's name and power limit.
+  2. build   -- nvcc the four CUDA sources of rsq_tpu_torch/csrc, in parallel.
+  3. kernels -- each kernel against its plain PyTorch version on the card at
+                the Llama-3-8B serving shapes, with the tolerance stated
+                beside each check; kernel, plain and library-call times
+                (CUDA events) and the least time the card could take.
+  4. small   -- a tiny model served on the GPU (kernels) and on the CPU
+                (plain versions): the logits must agree.
+  5. serve   -- PagedServingEngine at full Llama-3-8B width and depth (random
+                packed weights from a seeded torch.Generator), 8 requests of
+                100-700 prompt tokens, two sharing a 600-token prefix, 32 new
+                tokens each; every kernel's launch count must rise.
+Then one JSON line per phase result, the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}.  --profile adds a torch.profiler table
+of one decode step and a "profile" line: the step's wall and queueing
+time, the card's busy time, and the step's stream syncs and copies.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet, dense: bytes/s of HBM3 and peak operations/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+BF16_EPS = 2.0 ** -8
+# end-to-end logit tolerance of the tiny GPU-vs-CPU check, in std of the
+# logits: the reference's own jit-vs-eager spread (tests/test_torch_paged.py)
+LOGIT_MAX, LOGIT_RMS = 0.25, 0.08
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def ensure(cond, what="check failed"):
+    """A failed check ends the run (explicit, so it also holds under -O)."""
+    if not cond:
+        raise AssertionError(what)
+
+
+def bound_ms(nbytes: float, ops: float, kind: str):
+    """Least time for the work: bytes at the HBM rate or operations at the
+    peak rate of their type, whichever is longer."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(iters):
+        fn(i)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per fn() call without the host's gaps between launches:
+    the calls are queued behind a sleep kernel that lasts longer than the
+    host takes to queue them, so they run back to back on the card."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        if host_ms < e0.elapsed_time(e1):
+            return e1.elapsed_time(e2) / iters
+        ensure(cycles < 2_000_000_000, "host cannot queue ahead of the card")
+        cycles *= 4
+
+
+def rotating(fn, n):
+    """fn(j) for call i with j = i % n: cycles through n weight copies so a
+    timed loop reads from device memory, as the serving step does, rather
+    than from the 50 MB L2."""
+    return lambda i=0: fn(i % n)
+
+
+def timings(kernel, plain, library=None):
+    """The kernel wrapper's time per call (ms: CUDA events over back-to-back
+    calls, host gaps included; device_ms: device busy time), the plain
+    version's, and the library call's (None where there is none)."""
+    return {"ms": time_ms(kernel), "device_ms": device_ms(kernel),
+            "plain_ms": time_ms(plain, iters=5),
+            "library_ms": None if library is None else time_ms(library)}
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_w4a4(dev, g):
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    cfg_shapes = {"qkv": (4096, 3072), "o": (4096, 2048),
+                  "upgate": (4096, 14336), "down": (14336, 2048)}
+    copies = 4
+    cases, err = [], 0.0
+    for name, (K, Nh) in cfg_shapes.items():
+        wp = torch.randint(0, 256, (copies, K, Nh), dtype=torch.uint8,
+                           generator=g, device=dev)
+        s2 = (torch.rand((2, Nh), generator=g, device=dev) + 0.5) / (
+            7 * math.sqrt(K))
+        # the library yardstick: the same product on pre-unpacked int8
+        # weights (column-major, as torch._int_mm wants them)
+        w = wp.to(torch.int32)
+        w_i8 = torch.cat([(w << 28) >> 28, (w << 24) >> 28], dim=2).to(
+            torch.int8)
+        w_i8 = w_i8.transpose(1, 2).contiguous().transpose(1, 2)
+        del w
+        for M in (8, 1024):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            got = MW.w4a4_matmul_paired_stacked(x, wp, s2, 1)
+            xs = MW.token_scales(x)
+            want = MW.w4a4_matmul_paired_stacked_plain(x, wp, s2, 1, xs)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = max(err, float(diff.max()))
+            # integer accumulation and the same epilogue order: bit-equal
+            if not torch.equal(got, want):
+                raise AssertionError(f"w4a4 {name} M={M}: not bit-equal, "
+                                     f"{int((diff > 0).sum())} differ, "
+                                     f"max {float(diff.max())}")
+            mp = max(32, -(-M // 8) * 8)          # _int_mm wants M > 16
+            xq = torch.randint(-8, 8, (mp, K), dtype=torch.int8,
+                               generator=g, device=dev)
+            t = timings(
+                rotating(lambda j: MW.w4a4_matmul_paired_stacked(
+                    x, wp, s2, j), copies),
+                rotating(lambda j: MW.w4a4_matmul_paired_stacked_plain(
+                    x, wp, s2, j, MW.token_scales(x)), copies),
+                rotating(lambda j: torch._int_mm(xq, w_i8[j]), copies))
+            nbytes = M * K * 2 + K * Nh + 2 * Nh * 4 + M * 2 * Nh * 2
+            b, by = bound_ms(nbytes, 2.0 * M * K * 2 * Nh, "int8")
+            cases.append({"proj": name, "M": M, "K": K, "Nh": Nh, **t,
+                          "bound_ms": b, "bound_by": by})
+        del wp, w_i8
+    dec = [c for c in cases if c["M"] == 8]
+    total = {k: sum(c[k] for c in dec)
+             for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
+    return {"name": "w4a4_matmul_paired_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4a4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:559",
+            "max_abs_err": err, **total,
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in dec)
+            else "operations",
+            "unit": "one decode layer: qkv, o, upgate, down at M=8",
+            "check": "bit-equal to the plain version, M in (8, 1024)",
+            "cases": cases}
+
+
+def check_w8(dev, g):
+    """The lm_head at both of its main-path shapes: M=8 at decode, M=1 for
+    the last prompt token at prefill.  The top-level times are M=8's."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    K, N = 4096, 128256
+    w8 = torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=g,
+                       device=dev)
+    scale = (torch.rand((N,), generator=g, device=dev) + 0.5) / (
+        127 * math.sqrt(K))
+    w_deq = (w8.float() * scale).to(torch.bfloat16)
+    cases, err = [], 0.0
+    for M in (8, 1):
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        got = MW.w8_matmul(x, w8, scale)
+        want = MW.w8_matmul_plain(x, w8, scale)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs()
+        # f32 sums in another order, then one bf16 rounding each: within two
+        # bf16 rounding units, plus an absolute floor for cancelling sums
+        tol = 2 * BF16_EPS * want.float().abs() + 1e-5 * float(
+            want.float().abs().max())
+        if not bool((e <= tol).all()):
+            raise AssertionError(f"w8_matmul M={M}: max err {float(e.max())}")
+        err = max(err, float(e.max()))
+        t = timings(lambda i=0: MW.w8_matmul(x, w8, scale),
+                    lambda i=0: MW.w8_matmul_plain(x, w8, scale),
+                    lambda i=0: torch.matmul(x, w_deq))
+        b, by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * 2,
+                         2.0 * M * K * N, "bf16")
+        cases.append({"M": M, **t, "bound_ms": b, "bound_by": by})
+    del w_deq
+    return {"name": "w8_matmul", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w8_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:899",
+            "max_abs_err": err,
+            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by")},
+            "unit": "lm_head (8, 4096) x (4096, 128256)",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1)",
+            "cases": cases}
+
+
+def check_decode_prep(dev, g, cfg):
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.models import llama as LM
+    B, Hq, Hkv, D = 8, cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim_
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.randint(100, 1000, (B,), generator=g, device=dev)
+    cos, sin = LM.rope_tables(cfg, pos)
+    got = KV.decode_prep(q, k, v, cos, sin)
+    want = KV.decode_prep_plain(q, k, v, cos, sin)
+    torch.cuda.synchronize()
+    # same rounding points, no FMA contraction on either side: bit-equal
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"decode_prep output {i} not bit-equal")
+    t = timings(lambda i=0: KV.decode_prep(q, k, v, cos, sin),
+                lambda i=0: KV.decode_prep_plain(q, k, v, cos, sin))
+    nbytes = (B * (Hq + 2 * Hkv) * D * 2 + 2 * B * D * 4      # q, k, v, cos, sin
+              + B * Hq * D * 2 + 2 * B * Hkv * D * 4           # qh, k/v self
+              + 2 * B * Hkv * (D // 2 + 8))                    # codes, params
+    # rope 3 + butterfly log2(D) + scale 1 per q/k element; quant ~6 per k/v
+    ops = B * (Hq + Hkv) * D * (4 + math.log2(D)) + 2 * B * Hkv * D * 6
+    b, by = bound_ms(nbytes, ops, "f32")
+    return {"name": "decode_prep", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/decode_prep.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:180",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "unit": "one decode layer, B=8",
+            "check": "all seven outputs bit-equal to the plain version"}
+
+
+def check_paged_attention(dev, g, cfg):
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels import paged_kv as PKV
+    L, Hkv, D = cfg.num_layers, cfg.num_key_value_heads, cfg.head_dim_
+    Hq, page, B, NP = cfg.num_attention_heads, 512, 8, 2
+    P = B * NP + 1
+    pool = {
+        "kq": torch.randint(0, 256, (L, P, Hkv, D // 2, page),
+                            dtype=torch.uint8, generator=g, device=dev),
+        "vq": torch.randint(0, 256, (L, P, Hkv, D // 2, page),
+                            dtype=torch.uint8, generator=g, device=dev)}
+    for n in ("kp", "vp"):
+        sc = torch.rand((L, P, Hkv, 1, page), generator=g, device=dev) * 0.2
+        zp = torch.rand((L, P, Hkv, 1, page), generator=g, device=dev) - 0.5
+        pool[n] = torch.cat([sc + 0.01, zp], dim=3).contiguous()
+    # fill averaging 512 tokens: mid-page, page-boundary and second-page rows
+    lengths = torch.tensor([300, 400, 480, 511, 512, 600, 700, 595],
+                           dtype=torch.int32, device=dev)
+    ptab = (1 + torch.arange(B * NP, dtype=torch.int32, device=dev)
+            ).reshape(B, NP)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    nk, nv = (torch.randn((B, Hkv, D), generator=g, device=dev)
+              for _ in range(2))
+    nkq, nkp = KV.asym_quant_pack_head(nk)
+    nvq, nvp = KV.asym_quant_pack_head(nv)
+    rest = (ptab, lengths, KV.unpack_dequant_head(nkq, nkp),
+            KV.unpack_dequant_head(nvq, nvp), nkq, nkp, nvq, nvp)
+    names = ("kq", "kp", "vq", "vp")
+    err = 0.0
+    for int8_qk in (True, False):
+        pk = [pool[n].clone() for n in names]
+        pp = [pool[n].clone() for n in names]
+        got = PKV.int4_paged_decode_attention_self_append(
+            q, *pk, L - 1, *rest, int8_qk=int8_qk)
+        want = PKV.paged_self_append_plain(q, *pp, L - 1, *rest,
+                                           int8_qk=int8_qk)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs()
+        # f32 sums in another order over a tiled online softmax, then one
+        # bf16 rounding: within 4 bf16 rounding units + 2e-3
+        if not bool((e <= 4 * BF16_EPS * want.float().abs() + 2e-3).all()):
+            raise AssertionError(f"paged attention int8_qk={int8_qk}: "
+                                 f"max err {float(e.max())}")
+        err = max(err, float(e.max()))
+        # the in-place append: pools bit-equal (written column + the rest)
+        for n, a, b in zip(names, pk, pp):
+            if not torch.equal(a, b):
+                raise AssertionError(f"paged attention pool {n} differs")
+        del pk, pp
+    pl = [pool[n] for n in names]
+    t = timings(rotating(lambda j: PKV.int4_paged_decode_attention_self_append(
+                    q, *pl, j, *rest, int8_qk=True), L),
+                rotating(lambda j: PKV.paged_self_append_plain(
+                    q, *pl, j, *rest, int8_qk=True), L))
+    tokens = int(lengths.sum())
+    nbytes = (tokens * Hkv * 2 * (D // 2 + 8)                   # cached k, v
+              + 2 * B * Hq * D * 2                              # q, out
+              + 2 * B * Hkv * D * 4 + 2 * B * Hkv * (D // 2 + 8)  # new token
+              + 2 * B * Hkv * (D // 2 + 8) + B * (NP + 1) * 4)  # append, tables
+    b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "int8")
+    return {"name": "int4_paged_decode_attention_self_append",
+            "route": "cuda", "source": "rsq_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "rsq_tpu/kernels/paged_kv.py:463",
+            "also_replaces": "rsq_tpu/kernels/paged_kv.py:706",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "unit": "one decode layer, B=8, page 512, lengths "
+                    + ",".join(str(int(x)) for x in lengths) + ", int8_qk",
+            "check": "out within 4*2^-8 rel + 2e-3 of the plain version, "
+                     "int8_qk on and off; pools bit-equal after the append"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: a tiny model on the GPU against the same model on the CPU
+# ---------------------------------------------------------------------------
+
+def tiny_dense_model(cfg, seed=0):
+    """Fake-quant tiny model in numpy (weights = int4 codes * scale)."""
+    rng = np.random.default_rng(seed)
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim), "v": (d, cfg.kv_dim),
+              "o": (cfg.q_dim, d), "up": (d, f), "gate": (d, f),
+              "down": (f, d)}
+    layers, quant = [], {}
+    for i in range(cfg.num_layers):
+        lp = {"input_norm": rng.uniform(0.8, 1.2, d).astype(np.float32),
+              "post_norm": rng.uniform(0.8, 1.2, d).astype(np.float32)}
+        for name, (k, n) in shapes.items():
+            codes = rng.integers(-8, 8, size=(k, n)).astype(np.float32)
+            scale = (rng.uniform(0.5, 1.5, n) / (7 * np.sqrt(k))
+                     ).astype(np.float32)
+            lp[name] = {"w": codes * scale[None, :], "b": None}
+            quant[f"layers.{i}.{name}"] = {"bits": 4, "scale": scale}
+        layers.append(lp)
+    params = {"embed": rng.standard_normal((v, d)).astype(np.float32),
+              "final_norm": rng.uniform(0.8, 1.2, d).astype(np.float32),
+              "lm_head": (rng.standard_normal((d, v)) / np.sqrt(d)
+                          ).astype(np.float32),
+              "layers": layers}
+    return params, quant
+
+
+def tree_to(tree, dev):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def small_check(dev):
+    """Three requests (two sharing a full page) through the engine on the
+    GPU and on the CPU.  Until the first step where the two pick different
+    tokens both saw the same tokens, so their logits must agree within the
+    end-to-end tolerance."""
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving import params as SP
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    cfg = ModelConfig.tiny()
+    dense, quant = tiny_dense_model(cfg, seed=1)
+    sp = S.quantize_lm_head(S.stack_layer_params(SP.fuse_for_decode(
+        SP.to_serving_params(dense, quant, cfg, device="cpu"))))
+    sc = S.ServingConfig(model=cfg, max_seq=256, attn_int8_qk=True)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.vocab_size, 128)
+    prompts = [rng.integers(0, cfg.vocab_size, 40),
+               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 9)]),
+               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 30)])]
+    runs = []
+    for d in ("cuda", "cpu"):
+        eng = PagedServingEngine(tree_to(sp, d), sc, num_slots=2,
+                                 page_size=128, record_logits=True, device=d)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=4)
+        runs.append({r.uid: r for r in eng.run_until_done(max_steps=50)})
+    gpu, cpu = runs
+    worst = 0.0
+    compared = 0
+    for uid in (1, 2, 3):
+        a, b = gpu[uid], cpu[uid]
+        ensure(len(a.output) == len(b.output) == 4, uid)
+        ensure(a.reused_pages == b.reused_pages, uid)
+        for x, y, la, lb in zip(a.output, b.output, a.logit_trace,
+                                b.logit_trace):
+            sd = float(np.std(lb))
+            e = np.abs(la - lb)
+            ensure(np.isfinite(la).all())
+            ensure(e.max() <= LOGIT_MAX * sd, (uid, e.max() / sd))
+            ensure(np.sqrt(np.mean(e ** 2)) <= LOGIT_RMS * sd, uid)
+            worst = max(worst, float(e.max() / sd))
+            compared += 1
+            if x != y:
+                break
+    ensure(gpu[3].reused_pages == 1)
+    return {"small": {"config": "tiny (2 layers, hidden 64, heads 4/2, "
+                                "intermediate 112, page 128)",
+                      "logit_steps_compared": compared,
+                      "max_err_over_std": worst,
+                      "tolerance_over_std": LOGIT_MAX}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serve Llama-3-8B widths and depth
+# ---------------------------------------------------------------------------
+
+def serve(dev, cfg, profile: bool):
+    from rsq_tpu_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.params import random_serving_params
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    t0 = time.perf_counter()
+    params = S.quantize_lm_head(random_serving_params(cfg, seed=0,
+                                                      device=dev))
+    torch.cuda.synchronize()
+    log(f"serve: params built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    sc = S.ServingConfig(model=cfg, a4=True, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    batch, new_tokens = 8, 32
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 600)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 40)]),
+               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 90)])]
+    prompts += [rng.integers(0, cfg.vocab_size, int(n))
+                for n in rng.integers(100, 701, batch - 2)]
+    eng = PagedServingEngine(params, sc, num_slots=batch, page_size=512,
+                             record_logits=True, device=dev)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=new_tokens)
+
+    reset_launches()                       # counts from here on: the main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._admit()                           # the 8 prefills
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ensure(all(s is not None for s in eng.slots), "a request not admitted")
+    step_s, per_step, done = [], None, []
+    logit_rows = [r.logit_trace[0] for r in eng.slots]
+    while any(s is not None for s in eng.slots):
+        nstep = len(step_s)
+        # record logits on the first two steps (checked below), then time
+        # steps that copy only the sampled tokens to the host
+        eng.record_logits = nstep < 2
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done += eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if nstep == 2:
+            per_step = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+        if nstep < 2:
+            logit_rows += [r.logit_trace[-1] for r in eng.slots
+                           if r is not None]
+        if len(step_s) > 4 * new_tokens:
+            raise AssertionError("serve loop did not finish")
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    ensure(len(done) == batch, len(done))
+    for r in done:
+        ensure(len(r.output) == new_tokens, (r.uid, len(r.output)))
+        ensure(all(0 <= t < cfg.vocab_size for t in r.output))
+    reused = sorted(r.reused_pages for r in done)
+    ensure(reused[-1] == 1, f"prefix cache not hit: {reused}")
+    for row in logit_rows:
+        ensure(row.shape == (cfg.vocab_size,) and np.isfinite(row).all())
+    missing = [k for k in KERNELS if launches[k] == 0]
+    ensure(not missing, f"kernels never launched on the main path: {missing}")
+
+    timed = step_s[2:-1] or step_s       # all 8 slots live, logits not copied
+    step_ms = float(np.median(timed)) * 1e3
+    prompt_tokens = int(sum(len(p) for p in prompts))
+    if profile:
+        profile_decode(eng, params, sc, dev)
+    return {"serve": {
+        "model": "llama3_8b widths, 32 layers, random W4A4 weights (seed 0)",
+        "batch": batch, "page": 512, "max_seq": 1024, "attn_int8_qk": True,
+        "int8_lm_head": True, "prompt_tokens": prompt_tokens,
+        "prompt_lens": [len(p) for p in prompts],
+        "new_tokens_each": new_tokens, "prefix_pages_reused": reused,
+        "prefill_ms_total": prefill_s * 1e3,
+        "prefill_ms_per_request": prefill_s * 1e3 / batch,
+        "prefill_tok_s": prompt_tokens / prefill_s,
+        "decode_ms_per_step_median": step_ms,
+        "decode_ms_per_step_min": float(np.min(timed)) * 1e3,
+        "decode_steps_timed": len(timed),
+        "decode_tok_s": batch / (step_ms / 1e3),
+        "launches_per_decode_step": per_step,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}, launches
+
+
+def profile_decode(eng, params, sc, dev):
+    """One decode step of the live pool, all 8 rows at length 512: its wall
+    time and the time the host takes to queue it (median of 5 unprofiled
+    steps), the card's busy time in it, the host-side synchronisations and
+    host-to-device copies it makes (torch.profiler), and the kernel table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from rsq_tpu_torch.serving.paged import decode_step_paged_fast
+    B = eng.num_slots
+    ptab = torch.as_tensor(eng.page_tables, device=dev)
+    lengths = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    toks = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def step():
+        decode_step_paged_fast(params, eng.pool, ptab, lengths, toks, sc)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    queue_ms, wall_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        queue_ms.append((t1 - t0) * 1e3)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    log(avg.table(sort_by="cuda_time_total", row_limit=25))
+    calls = {e.key: e.count for e in avg}
+    busy_ms = sum(e.self_device_time_total for e in avg
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    wall = float(np.median(wall_ms))
+    summary = {
+        "step_wall_ms_median": wall, "step_wall_ms": wall_ms,
+        "step_queue_ms_median": float(np.median(queue_ms)),
+        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall,
+        "stream_syncs": calls.get("cudaStreamSynchronize", 0)
+        + calls.get("cudaDeviceSynchronize", 0),
+        "h2d_copies": sum(n for k, n in calls.items()
+                          if k.startswith("Memcpy HtoD")),
+        "kernel_launches": sum(n for k, n in calls.items()
+                               if k in ("cudaLaunchKernel", "cuLaunchKernel",
+                                        "cudaLaunchKernelExC",
+                                        "cuLaunchKernelEx"))}
+    log(json.dumps({"profile": summary}))
+
+
+def main(argv):
+    profile = "--profile" in argv
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+                 "False); this smoke runs only on an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    import rsq_tpu_torch
+    pkg = Path(rsq_tpu_torch.__file__).resolve().parent
+    if pkg != ROOT / "rsq_tpu_torch":
+        sys.exit(f"chip_smoke: rsq_tpu_torch found at {pkg}, not in {ROOT}")
+    from rsq_tpu_torch.kernels import cuda_build
+    from rsq_tpu_torch.models.config import ModelConfig
+
+    # phase 1: device
+    smi = nvidia_smi()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build
+    build_s = cuda_build.build()
+    log(f"build: {build_s:.1f} s ({len(cuda_build.SOURCES)} sources, "
+        "nvcc in parallel)")
+
+    # phase 3: kernels
+    cfg = ModelConfig.llama3_8b()
+    g = torch.Generator(device=dev).manual_seed(0)
+    kernels = []
+    for fn in (lambda: check_w4a4(dev, g), lambda: check_w8(dev, g),
+               lambda: check_decode_prep(dev, g, cfg),
+               lambda: check_paged_attention(dev, g, cfg)):
+        t0 = time.perf_counter()
+        kernels.append(fn())
+        torch.cuda.empty_cache()
+        log(f"kernel {kernels[-1]['name']}: ok "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # phase 4: small end-to-end check against the CPU
+    small = small_check(dev)
+    log(json.dumps(small))
+
+    # phase 5: serve
+    result, launches = serve(dev, cfg, profile)
+    result["serve"]["card"] = smi
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["launches_per_decode_step"] = \
+            result["serve"]["launches_per_decode_step"][k["name"]]
+    log(json.dumps(result))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,188 @@
+"""INT4/INT8 weight packing and the two matmul kernels of the serving path
+(the port of rsq_tpu.kernels.matmul_w4).
+
+Packing (host-side tensor code): "planar" int4 W (K, N) -> uint8 (K, N/2),
+where byte (k, g*P + j) holds outputs (k, g*2P + j) [low nibble] and
+(k, g*2P + P + j) [high nibble], P = PACK_GROUP/2.
+
+Kernels, each with its plain PyTorch version beside it:
+- w4a4_matmul_paired_stacked: csrc/w4a4_matmul.cu
+- w8_matmul: csrc/w8_matmul.cu
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rsq_tpu_torch.core.numerics import div, div_const
+from rsq_tpu_torch.kernels import LAUNCHES, cuda_build, on_cuda, ptr, require, stream
+
+
+# ---------------------------------------------------------------------------
+# Packing
+# ---------------------------------------------------------------------------
+
+# planar pairing group: each byte's two nibbles are outputs (2j, 2j+1)
+PACK_GROUP = 2
+
+
+def _nibbles(wq: torch.Tensor) -> torch.Tensor:
+    """int values in [-8, 7] -> uint8 two's-complement nibbles."""
+    w = wq.to(torch.int16)
+    return torch.where(w < 0, w + 16, w).to(torch.uint8)
+
+
+def pack_w4_planar(wq: torch.Tensor) -> torch.Tensor:
+    """wq: int values in [-8, 7], shape (..., N) with N even -> uint8 (..., N/2)."""
+    u = _nibbles(wq)
+    n = u.shape[-1]
+    g = PACK_GROUP
+    ug = u.reshape(*u.shape[:-1], n // g, 2, g // 2)
+    return (ug[..., 0, :] | (ug[..., 1, :] << 4)).reshape(*u.shape[:-1], n // 2)
+
+
+def _sign4(u: torch.Tensor) -> torch.Tensor:
+    s = u.to(torch.int8)
+    return torch.where(s >= 8, s - 16, s)
+
+
+def unpack_w4_planar(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_w4_planar; returns int8 (..., N)."""
+    n = p.shape[-1] * 2
+    g = PACK_GROUP
+    pg = p.reshape(*p.shape[:-1], n // g, g // 2)
+    out = torch.stack([_sign4(pg & 0x0F), _sign4(pg >> 4)], dim=-2)
+    return out.reshape(*p.shape[:-1], n)
+
+
+def pair_scales(scale: torch.Tensor) -> torch.Tensor:
+    """(N,) per-output scales -> (2, N/2) aligned with the packed planes."""
+    n = scale.shape[-1]
+    g = PACK_GROUP
+    s = scale.reshape(n // g, 2, g // 2)
+    return s.movedim(1, 0).reshape(2, n // 2)
+
+
+def unpair_outputs(y3: torch.Tensor) -> torch.Tensor:
+    """(M, 2, N/2) plane-paired kernel output -> (M, N)."""
+    m, n = y3.shape[0], y3.shape[-1] * 2
+    g = PACK_GROUP
+    return y3.reshape(m, 2, n // g, g // 2).movedim(1, 2).reshape(m, n)
+
+
+def w8_quantize(w: torch.Tensor, axis: int = 0):
+    """Per-output-channel symmetric int8 of a dense (K, N) matrix (axis =
+    reduction axis) -> (w8 int8, scale (N,) f32)."""
+    wf = w.float()
+    absmax = wf.abs().amax(dim=axis)
+    scale = torch.where(absmax == 0, 1.0, div(absmax, 127.0))
+    w8 = torch.clamp(torch.round(wf / scale), -127, 127)
+    return w8.to(torch.int8), scale.float()
+
+
+def token_scales(x: torch.Tensor, clip_ratio: float = 1.0) -> torch.Tensor:
+    """Per-token activation scale (M, 1) f32: absmax*clip/7, 1 where 0."""
+    absmax = x.float().abs().amax(dim=1, keepdim=True)
+    return torch.where(absmax == 0, 1.0, div_const(absmax * clip_ratio, 7.0))
+
+
+# ---------------------------------------------------------------------------
+# W4A4 against stacked plane-major weights
+# ---------------------------------------------------------------------------
+
+def w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs):
+    """Plain PyTorch version: same quantization (multiply by the inverse
+    scale, round half to even), exact integer products (small integers in
+    f32 sum exactly: |acc| <= K*64 < 2^24), same epilogue order."""
+    inv = torch.reciprocal(xs)
+    xq = torch.clamp(torch.round(x.float() * inv), -8, 7)
+    w = wp_all[layer].to(torch.int32)
+    lo = ((w << 28) >> 28).float()
+    hi = ((w << 24) >> 28).float()
+    acc = torch.stack([xq @ lo, xq @ hi], dim=1)          # (M, 2, Nh)
+    return (acc * xs[:, :, None] * scale2).to(torch.bfloat16)
+
+
+def _w4a4_launch(x, wp_all, scale2, layer, xs):
+    fn = cuda_build.function(
+        "w4a4_matmul", "w4a4_matmul_paired_stacked_launch",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    M, K = x.shape
+    Nh = wp_all.shape[2]
+    out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
+    acc = torch.empty((M, 2, Nh), dtype=torch.int32, device=x.device)
+    # split K so the small-N decode shapes still launch ~4 blocks per SM
+    # (kchunk is a multiple of the kernel's 64-value x stage)
+    blocks = -(-Nh // 512) * -(-M // 8)
+    nsplit = max(1, min(-(-528 // blocks), -(-K // 64)))
+    kchunk = -(-K // nsplit)
+    kchunk = -(-kchunk // 64) * 64
+    wl = wp_all[layer]
+    rc = fn(ptr(x), ptr(xs), ptr(wl), ptr(scale2), ptr(acc), ptr(out),
+            M, K, Nh, kchunk, stream(x))
+    cuda_build.check(rc, "w4a4_matmul_paired_stacked")
+    LAUNCHES["w4a4_matmul_paired_stacked"] += 1
+    return out
+
+
+def w4a4_matmul_paired_stacked(x, wp_all, scale2, layer: int,
+                               clip_ratio: float = 1.0):
+    """W4A4 matmul against layer `layer` of stacked plane-major weights
+    wp_all (L, K, Nh) uint8, read in place (no copy of the layer).
+    x: (M, K) bf16; scale2: (2, Nh) f32 for this layer.  Returns the
+    plane-paired output (M, 2, Nh) bf16.  The per-token scale is computed
+    here in plain PyTorch (one pass over x); the kernel quantizes x with it,
+    multiplies in the integer domain and applies the dual-scale epilogue.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    require(x.dim() == 2 and wp_all.dim() == 3, "x (M, K), wp_all (L, K, Nh)")
+    M, K = x.shape
+    L, Kw, Nh = wp_all.shape
+    require(K == Kw, f"K mismatch {K} vs {Kw}")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
+    require(wp_all.dtype == torch.uint8, "wp_all must be uint8")
+    require(scale2.shape == (2, Nh) and scale2.dtype == torch.float32,
+             f"scale2 must be (2, {Nh}) f32")
+    xs = token_scales(x, clip_ratio)
+    if not on_cuda((x, wp_all, scale2)):
+        return w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs)
+    require(K % 4 == 0 and Nh % 4 == 0, "kernel needs K % 4 == 0, Nh % 4 == 0")
+    require(x.is_contiguous() and wp_all.is_contiguous(), "contiguous inputs")
+    return _w4a4_launch(x, wp_all, scale2.contiguous(), layer,
+                        xs.reshape(M).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# INT8 weight-only (lm_head)
+# ---------------------------------------------------------------------------
+
+def w8_matmul_plain(x, w8, scale):
+    """Plain PyTorch version: f32 products and sums, per-column scale."""
+    return ((x.float() @ w8.float()) * scale).to(torch.bfloat16)
+
+
+def w8_matmul(x, w8, scale):
+    """y = (x @ w8) * scale for dense int8 (K, N) weights with per-column
+    f32 scales (N,); x: (M, K) bf16 -> (M, N) bf16."""
+    require(x.dim() == 2 and w8.dim() == 2, "x (M, K), w8 (K, N)")
+    M, K = x.shape
+    Kw, N = w8.shape
+    require(K == Kw, f"K mismatch {K} vs {Kw}")
+    require(x.dtype == torch.bfloat16 and w8.dtype == torch.int8
+             and scale.dtype == torch.float32 and scale.shape == (N,),
+             "x bf16, w8 int8, scale (N,) f32")
+    if not on_cuda((x, w8, scale)):
+        return w8_matmul_plain(x, w8, scale)
+    require(N % 4 == 0, "kernel needs N % 4 == 0")
+    require(x.is_contiguous() and w8.is_contiguous() and scale.is_contiguous(),
+             "contiguous inputs")
+    fn = cuda_build.function(
+        "w8_matmul", "w8_matmul_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    rc = fn(ptr(x), ptr(w8), ptr(scale), ptr(out), M, K, N, stream(x))
+    cuda_build.check(rc, "w8_matmul")
+    LAUNCHES["w8_matmul"] += 1
+    return out

@@ -1,0 +1,117 @@
+"""On an NVIDIA card: each hand-written CUDA kernel of rsq_tpu_torch
+against its plain PyTorch version on the same inputs (the plain versions
+are themselves held against rsq_tpu by test_torch_kernels.py).  Imports
+neither JAX nor rsq_tpu, so it runs on a machine with the card alone:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Without a card every test skips."""
+
+import numpy as np
+import pytest
+import torch
+
+from rsq_tpu_torch.kernels import kv_cache as TKV
+from rsq_tpu_torch.kernels import matmul_w4 as TMW
+from rsq_tpu_torch.kernels import paged_kv as TPKV
+
+BF16_EPS = 2.0 ** -8
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def f32(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 8, 130])
+@pytest.mark.parametrize("K,Nh", [(256, 160), (112, 32)])
+def test_w4a4_matches_plain(dev, M, K, Nh):
+    """Integer accumulation, same epilogue order: bit-equal."""
+    rng = np.random.default_rng(M)
+    wp = torch.from_numpy(rng.integers(0, 256, (2, K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want = TMW.w4a4_matmul_paired_stacked(x, wp, s2, 1)
+    got = TMW.w4a4_matmul_paired_stacked(x.to(dev), wp.to(dev), s2.to(dev), 1)
+    np.testing.assert_array_equal(f32(got), f32(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8])     # prefill lm_head row, decode batch
+def test_w8_matches_plain(dev, M):
+    """f32 sums in another order, one bf16 rounding."""
+    rng = np.random.default_rng(M)
+    x = torch.from_numpy(rng.standard_normal((M, 256)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (256, 512), dtype=np.int8))
+    sc = torch.from_numpy(rng.uniform(0.001, 0.01, 512).astype(np.float32))
+    want = TMW.w8_matmul(x, w8, sc)
+    got = TMW.w8_matmul(x.to(dev), w8.to(dev), sc.to(dev))
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2 * BF16_EPS,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_had", [True, False])
+def test_decode_prep_matches_plain(dev, kv_had):
+    """Same rounding points, no FMA contraction on either side: bit-equal."""
+    rng = np.random.default_rng(1)
+    B, Hq, Hkv, D = 8, 32, 8, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(torch.bfloat16)
+               for s in ((B, Hq, D), (B, Hkv, D), (B, Hkv, D)))
+    ang = torch.from_numpy(rng.uniform(0, 100, (B, D)).astype(np.float32))
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    want = TKV.decode_prep(q, k, v, cos, sin, kv_had=kv_had)
+    got = TKV.decode_prep(*(t.to(dev) for t in (q, k, v, cos, sin)),
+                          kv_had=kv_had)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy() if g.dtype != torch.bfloat16
+                                      else f32(g), w.numpy() if w.dtype !=
+                                      torch.bfloat16 else f32(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_paged_attention_matches_plain(dev, int8_qk):
+    """Output within 2 bf16 roundings (f32 sums in another order, tiled
+    online softmax); pools bit-equal after the in-place append."""
+    rng = np.random.default_rng(2)
+    L, P, B, Hkv, G, D, page = 2, 10, 3, 8, 4, 128, 256
+    pools = [torch.from_numpy(rng.integers(0, 256, (L, P, Hkv, D // 2, page),
+                                           dtype=np.uint8)),
+             torch.from_numpy(np.stack(
+                 [rng.uniform(0.01, 0.2, (L, P, Hkv, page)),
+                  rng.uniform(-0.5, 0.5, (L, P, Hkv, page))], 3
+             ).astype(np.float32))]
+    pools = [pools[0], pools[1], pools[0].flip(0).contiguous(),
+             pools[1].flip(0).contiguous()]
+    ptab = torch.tensor([[0, 2, 5], [3, 1, 6], [4, 7, 8]], dtype=torch.int32)
+    lengths = torch.tensor([page + 7, page, 0], dtype=torch.int32)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2
+                          ).astype(np.float32)).to(torch.bfloat16)
+    nkq, nkp = TKV.asym_quant_pack_head(torch.from_numpy(
+        rng.standard_normal((B, Hkv, D)).astype(np.float32)))
+    nvq, nvp = TKV.asym_quant_pack_head(torch.from_numpy(
+        rng.standard_normal((B, Hkv, D)).astype(np.float32)))
+    rest = [ptab, lengths, TKV.unpack_dequant_head(nkq, nkp),
+            TKV.unpack_dequant_head(nvq, nvp), nkq, nkp, nvq, nvp]
+    cpu_pool = [t.clone() for t in pools]
+    gpu_pool = [t.to(dev) for t in pools]
+    want = TPKV.int4_paged_decode_attention_self_append(
+        q, *cpu_pool, 1, *rest, int8_qk=int8_qk)
+    got = TPKV.int4_paged_decode_attention_self_append(
+        q.to(dev), *gpu_pool, 1, *(t.to(dev) for t in rest), int8_qk=int8_qk)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=4 * BF16_EPS,
+                               atol=2e-3)
+    for g, w in zip(gpu_pool, cpu_pool):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

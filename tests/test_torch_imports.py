@@ -1,0 +1,82 @@
+"""rsq_tpu_torch stands alone: importing every module of it (and the chip
+smoke script) pulls in neither JAX nor rsq_tpu, and with no GPU the entry
+points that default to device="cuda" raise instead of running on the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import rsq_tpu_torch
+from rsq_tpu_torch.kernels import paged_kv as TPKV
+from rsq_tpu_torch.models.config import ModelConfig
+from rsq_tpu_torch.serving import model as TS
+from rsq_tpu_torch.serving import paged as TPG
+from rsq_tpu_torch.serving import params as TP
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def all_modules():
+    return ["rsq_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(rsq_tpu_torch.__path__,
+                                              "rsq_tpu_torch."))
+
+
+def test_modules_import_without_jax_or_rsq_tpu():
+    mods = all_modules()
+    assert "rsq_tpu_torch.serving.paged" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'rsq_tpu.')) or m == 'rsq_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith("ok")
+
+
+def _needs_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+
+
+@pytest.mark.parametrize("entry", ["init_pool", "from_numpy_params",
+                                   "to_serving_params",
+                                   "random_serving_params", "engine"])
+def test_default_device_raises_without_cuda(entry):
+    _needs_no_gpu()
+    cfg = ModelConfig.tiny()
+    calls = {
+        "init_pool": lambda: TPKV.init_pool(2, 3, 2, 16, 128),
+        "from_numpy_params": lambda: TP.from_numpy_params(
+            {"w": np.zeros((2, 2), np.float32)}),
+        "to_serving_params": lambda: TP.to_serving_params(
+            {"embed": np.zeros((4, 4), np.float32)}, {}, cfg),
+        "random_serving_params": lambda: TP.random_serving_params(cfg),
+        "engine": lambda: TPG.PagedServingEngine(
+            TP.random_serving_params(cfg, device="cpu"),
+            TS.ServingConfig(model=cfg, max_seq=256)),
+    }
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        calls[entry]()
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """No card: the smoke exits nonzero before doing anything and prints no
+    result line."""
+    _needs_no_gpu()
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
