@@ -5,21 +5,28 @@
 
 Phases (any failure raises and exits nonzero; nothing is caught):
   1. device  -- require CUDA; print the card's name and power limit.
-  2. build   -- nvcc the four CUDA sources of rsq_tpu_torch/csrc, in parallel.
-  3. kernels -- each kernel against its plain PyTorch version on the card at
-                the Llama-3-8B serving shapes, with the tolerance stated
-                beside each check; kernel, plain and library-call times
-                (CUDA events) and the least time the card could take.
+  2. build   -- nvcc the CUDA sources of rsq_tpu_torch/csrc, in parallel.
+  3. kernels -- each of the eight kernels against its plain PyTorch version
+                on the card at the Llama-3-8B serving shapes, with the
+                tolerance stated beside each check; kernel, plain and
+                library-call times (CUDA events) and the least time the
+                card could take.
   4. small   -- a tiny model served on the GPU (kernels) and on the CPU
-                (plain versions): the logits must agree.
-  5. serve   -- PagedServingEngine at full Llama-3-8B width and depth (random
-                packed weights from a seeded torch.Generator), 8 requests of
-                100-700 prompt tokens, two sharing a 600-token prefix, 32 new
-                tokens each; every kernel's launch count must rise.
-Then one JSON line per phase result, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.  --profile adds a torch.profiler table
-of one decode step and a "profile" line: the step's wall and queueing
-time, the card's busy time, and the step's stream syncs and copies.
+                (plain versions) by the paged and the contiguous engine:
+                the logits must agree.
+  5. serve   -- three paths at full Llama-3-8B width and depth, 8 requests
+                of 100-700 prompt tokens (two sharing a 600-token prefix),
+                32 new tokens each; each path's kernel launch counts start
+                at 0 just before it and must rise:
+                serve            PagedServingEngine, W4A4 INT4-KV, page 512
+                serve_contiguous ServingEngine, the same W4A4 weights
+                serve_bf16       ServingEngine, dense bf16 weights and cache
+                (the bf16 baseline), built after the W4A4 params are freed.
+Then one JSON line per phase result, the kernels line, the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}.  --profile adds, after
+each serve phase, a torch.profiler table of one decode step and a
+"profile" line: the step's wall and queueing time, the card's busy time,
+and the step's stream syncs, copies and launches.
 """
 
 from __future__ import annotations
@@ -266,21 +273,25 @@ def check_decode_prep(dev, g, cfg):
             "check": "all seven outputs bit-equal to the plain version"}
 
 
+def _int4_cache(dev, g, L, B, H, D, S):
+    """Random INT4 cache (L, B, H, ., S): codes, and (scale, zero) params."""
+    cache = {n: torch.randint(0, 256, (L, B, H, D // 2, S), dtype=torch.uint8,
+                              generator=g, device=dev) for n in ("kq", "vq")}
+    for n in ("kp", "vp"):
+        sc = torch.rand((L, B, H, 1, S), generator=g, device=dev) * 0.2
+        zp = torch.rand((L, B, H, 1, S), generator=g, device=dev) - 0.5
+        cache[n] = torch.cat([sc + 0.01, zp], dim=3).contiguous()
+    return [cache[n] for n in ("kq", "kp", "vq", "vp")]
+
+
 def check_paged_attention(dev, g, cfg):
     from rsq_tpu_torch.kernels import kv_cache as KV
     from rsq_tpu_torch.kernels import paged_kv as PKV
     L, Hkv, D = cfg.num_layers, cfg.num_key_value_heads, cfg.head_dim_
     Hq, page, B, NP = cfg.num_attention_heads, 512, 8, 2
     P = B * NP + 1
-    pool = {
-        "kq": torch.randint(0, 256, (L, P, Hkv, D // 2, page),
-                            dtype=torch.uint8, generator=g, device=dev),
-        "vq": torch.randint(0, 256, (L, P, Hkv, D // 2, page),
-                            dtype=torch.uint8, generator=g, device=dev)}
-    for n in ("kp", "vp"):
-        sc = torch.rand((L, P, Hkv, 1, page), generator=g, device=dev) * 0.2
-        zp = torch.rand((L, P, Hkv, 1, page), generator=g, device=dev) - 0.5
-        pool[n] = torch.cat([sc + 0.01, zp], dim=3).contiguous()
+    pool = dict(zip(("kq", "kp", "vq", "vp"),
+                    _int4_cache(dev, g, L, P, Hkv, D, page)))
     # fill averaging 512 tokens: mid-page, page-boundary and second-page rows
     lengths = torch.tensor([300, 400, 480, 511, 512, 600, 700, 595],
                            dtype=torch.int32, device=dev)
@@ -338,6 +349,215 @@ def check_paged_attention(dev, g, cfg):
                      "int8_qk on and off; pools bit-equal after the append"}
 
 
+# one decode layer of the contiguous phases: 8 slots of 1024 tokens, fill
+# 300-700 plus the edges (empty slot, chunk ends, the last position)
+CONTIG_LENGTHS = [300, 450, 600, 700, 0, 511, 512, 1023]
+TIMING_LAYERS = 8          # > the 50 MB L2, as the serving step reads it
+
+
+def check_contiguous_attention(dev, g, cfg):
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    cache = _int4_cache(dev, g, L, B, Hkv, D, S)
+    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    nk, nv = (torch.randn((B, Hkv, D), generator=g, device=dev)
+              for _ in range(2))
+    nkq, nkp = KV.asym_quant_pack_head(nk)
+    nvq, nvp = KV.asym_quant_pack_head(nv)
+    rest = (lengths, KV.unpack_dequant_head(nkq, nkp),
+            KV.unpack_dequant_head(nvq, nvp), nkq, nkp, nvq, nvp)
+    err = 0.0
+    for int8_qk in (True, False):
+        ck = [t.clone() for t in cache]
+        cp = [t.clone() for t in cache]
+        got = KV.int4_decode_attention_self_append(q, *ck, L - 1, *rest,
+                                                   int8_qk=int8_qk)
+        want = KV.self_append_plain(q, *cp, L - 1, *rest, int8_qk=int8_qk)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs()
+        # as the paged kernel (the same device body): 4 bf16 units + 2e-3
+        if not bool((e <= 4 * BF16_EPS * want.float().abs() + 2e-3).all()):
+            raise AssertionError(f"contiguous attention int8_qk={int8_qk}: "
+                                 f"max err {float(e.max())}")
+        err = max(err, float(e.max()))
+        for n, a, b in zip(("kq", "kp", "vq", "vp"), ck, cp):
+            if not torch.equal(a, b):
+                raise AssertionError(f"contiguous attention cache {n} differs")
+        del ck, cp
+    big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
+    t = timings(rotating(lambda j: KV.int4_decode_attention_self_append(
+                    q, *big, j, *rest, int8_qk=True), TIMING_LAYERS),
+                rotating(lambda j: KV.self_append_plain(
+                    q, *big, j, *rest, int8_qk=True), TIMING_LAYERS))
+    del big
+    tokens = sum(CONTIG_LENGTHS)
+    nbytes = (tokens * Hkv * 2 * (D // 2 + 8)                   # cached k, v
+              + 2 * B * Hq * D * 2                              # q, out
+              + 2 * B * Hkv * D * 4 + 2 * B * Hkv * (D // 2 + 8)  # new token
+              + 2 * B * Hkv * (D // 2 + 8) + B * 4)             # append, lengths
+    b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "int8")
+    return {"name": "int4_decode_attention_self_append", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:695",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "unit": "one decode layer, B=8, S=1024, lengths "
+                    + ",".join(map(str, CONTIG_LENGTHS)) + ", int8_qk",
+            "check": "out within 4*2^-8 rel + 2e-3 of the plain version, "
+                     "int8_qk on and off; caches bit-equal after the append"}
+
+
+def _bf16_cache(dev, g, L, B, H, S, D):
+    return [torch.randn((L, B, H, S, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+
+
+def check_bf16_attention(dev, g, cfg):
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    G = Hq // Hkv
+    k, v = _bf16_cache(dev, g, L, B, Hkv, S, D)
+    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    got = KV.bf16_decode_attention_stacked(q, k, v, L - 1, lengths)
+    want = KV.bf16_decode_attention_plain(q, k, v, L - 1, lengths)
+    torch.cuda.synchronize()
+    live = lengths > 0
+    err = 0.0
+    # out: bf16(p) against another running maximum, one bf16 rounding of
+    # out: 4 bf16 units + 2e-3; m and l: f32 sums in another order, 1e-5
+    for i, (a, w, rtol, atol) in enumerate(zip(
+            got, want, (4 * BF16_EPS, 1e-5, 1e-5), (2e-3, 0.0, 0.0))):
+        a, w = a.float()[live], w.float()[live]
+        e = (a - w).abs()
+        if not bool((e <= rtol * w.abs() + atol).all()):
+            raise AssertionError(f"bf16 attention output {i}: max err "
+                                 f"{float(e.max())}")
+        err = max(err, float(e.max())) if i == 0 else err
+    ensure(bool(torch.isnan(got[0][~live]).all())
+           and bool((got[1][~live] == -math.inf).all())
+           and bool((got[2][~live] == 0).all()), "bf16 attention empty row")
+    del k, v
+    kb, vb = _bf16_cache(dev, g, TIMING_LAYERS, B, Hkv, S, D)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]   # (B,1,1,S)
+    q4 = q[:, :, None, :]                                         # (B,Hq,1,D)
+    t = timings(
+        rotating(lambda j: KV.bf16_decode_attention_stacked(
+            q, kb, vb, j, lengths), TIMING_LAYERS),
+        rotating(lambda j: KV.bf16_decode_attention_plain(
+            q, kb, vb, j, lengths), TIMING_LAYERS),
+        rotating(lambda j: torch.nn.functional.scaled_dot_product_attention(
+            q4, kb[j], vb[j], attn_mask=mask, enable_gqa=True),
+            TIMING_LAYERS))
+    del kb, vb
+    tokens = sum(CONTIG_LENGTHS)
+    nbytes = (tokens * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2
+              + 2 * B * Hkv * G * 4 + B * 4)
+    b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
+    return {"name": "bf16_decode_attention_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/bf16_attention.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:849",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "library": "scaled_dot_product_attention (GQA, length mask)",
+            "unit": "one decode layer, B=8, S=1024, lengths "
+                    + ",".join(map(str, CONTIG_LENGTHS)),
+            "check": "out within 4*2^-8 rel + 2e-3 where l > 0, m and l "
+                     "within 1e-5 rel; length-0 row -inf, 0, 0/0"}
+
+
+def check_bf16_append(dev, g, cfg):
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    H, D = cfg.num_key_value_heads, cfg.head_dim_
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    k, v = _bf16_cache(dev, g, L, B, H, S, D)
+    nk, nv = (torch.randn((B, H, 1, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    kp, vp = k.clone(), v.clone()
+    KV.kv_append_stacked_bf16(k, v, L - 1, pos, nk, nv)
+    KV.kv_append_bf16_plain(kp, vp, L - 1, pos, nk, nv)
+    torch.cuda.synchronize()
+    ensure(torch.equal(k, kp) and torch.equal(v, vp),
+           "bf16 append: caches differ from the plain version")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in ((k, kp), (v, vp)))
+    rows, p64 = torch.arange(B, device=dev), pos.long()
+
+    def library(i=0):
+        k[L - 1, rows, :, p64] = nk[:, :, 0]
+        v[L - 1, rows, :, p64] = nv[:, :, 0]
+
+    t = timings(lambda i=0: KV.kv_append_stacked_bf16(k, v, L - 1, pos, nk, nv),
+                lambda i=0: KV.kv_append_bf16_plain(k, v, L - 1, pos, nk, nv),
+                library)
+    b, by = bound_ms(4 * B * H * D * 2 + B * 4, 0.0, "bf16")
+    return {"name": "kv_append_stacked_bf16", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/bf16_attention.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:937",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "library": "indexed assignment k[layer, b_idx, :, pos] = ...",
+            "unit": "one decode layer, B=8, S=1024",
+            "check": "whole caches bit-equal to the plain version"}
+
+
+def check_w16(dev, g, cfg):
+    """The unfused Llama-3-8B products at decode (M=8) and at the largest
+    prefill bucket (M=1024).  The top-level times are one decode layer's
+    seven products: q, k, v, o, up, gate, down."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"q|o": (d, cfg.q_dim, 2), "k|v": (d, cfg.kv_dim, 2),
+              "up|gate": (d, f, 2), "down": (f, d, 1)}
+    cases, err = [], 0.0
+    for name, (K, N, uses) in shapes.items():
+        copies = max(2, -(-128 * 2**20 // (K * N * 2)))   # > the L2 per loop
+        w = torch.randn((copies, K, N), generator=g, device=dev).to(
+            torch.bfloat16) * (1.0 / math.sqrt(K))
+        for M in (8, 1024):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            got = MW.w16_matmul_stacked(x, w, 1)
+            want = MW.w16_matmul_stacked_plain(x, w, 1, torch.bfloat16)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs()
+            # f32 sums in another order, one bf16 rounding each
+            tol = 2 * BF16_EPS * want.float().abs() + 1e-5 * float(
+                want.float().abs().max())
+            if not bool((e <= tol).all()):
+                raise AssertionError(f"w16 {name} M={M}: max err "
+                                     f"{float(e.max())}")
+            err = max(err, float(e.max()))
+            t = timings(
+                rotating(lambda j: MW.w16_matmul_stacked(x, w, j), copies),
+                rotating(lambda j: MW.w16_matmul_stacked_plain(
+                    x, w, j, torch.bfloat16), copies),
+                rotating(lambda j: torch.matmul(x, w[j]), copies))
+            b, by = bound_ms(M * K * 2 + K * N * 2 + M * N * 2,
+                             2.0 * M * K * N, "bf16")
+            cases.append({"proj": name, "M": M, "K": K, "N": N,
+                          "per_layer": uses, **t, "bound_ms": b,
+                          "bound_by": by})
+        del w
+    dec = [c for c in cases if c["M"] == 8]
+    total = {k: sum(c[k] * c["per_layer"] for c in dec)
+             for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
+    return {"name": "w16_matmul_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w16_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:822",
+            "max_abs_err": err, **total,
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in dec)
+            else "operations",
+            "library": "torch.matmul(x, w_all[i])",
+            "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "cases": cases}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: a tiny model on the GPU against the same model on the CPU
 # ---------------------------------------------------------------------------
@@ -378,39 +598,15 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
-def small_check(dev):
-    """Three requests (two sharing a full page) through the engine on the
-    GPU and on the CPU.  Until the first step where the two pick different
-    tokens both saw the same tokens, so their logits must agree within the
-    end-to-end tolerance."""
-    from rsq_tpu_torch.models.config import ModelConfig
-    from rsq_tpu_torch.serving import model as S
-    from rsq_tpu_torch.serving import params as SP
-    from rsq_tpu_torch.serving.paged import PagedServingEngine
-    cfg = ModelConfig.tiny()
-    dense, quant = tiny_dense_model(cfg, seed=1)
-    sp = S.quantize_lm_head(S.stack_layer_params(SP.fuse_for_decode(
-        SP.to_serving_params(dense, quant, cfg, device="cpu"))))
-    sc = S.ServingConfig(model=cfg, max_seq=256, attn_int8_qk=True)
-    rng = np.random.default_rng(2)
-    shared = rng.integers(0, cfg.vocab_size, 128)
-    prompts = [rng.integers(0, cfg.vocab_size, 40),
-               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 9)]),
-               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 30)])]
-    runs = []
-    for d in ("cuda", "cpu"):
-        eng = PagedServingEngine(tree_to(sp, d), sc, num_slots=2,
-                                 page_size=128, record_logits=True, device=d)
-        for p in prompts:
-            eng.add_request(p, max_new_tokens=4)
-        runs.append({r.uid: r for r in eng.run_until_done(max_steps=50)})
-    gpu, cpu = runs
-    worst = 0.0
-    compared = 0
-    for uid in (1, 2, 3):
+def _compare_runs(gpu, cpu, uids, new_tokens):
+    """Logits of each request's steps on the GPU and the CPU, up to and
+    including the first step where the two pick different tokens (until
+    then both saw the same tokens).  Returns (steps compared, worst
+    max error over the std of the logits)."""
+    worst, compared = 0.0, 0
+    for uid in uids:
         a, b = gpu[uid], cpu[uid]
-        ensure(len(a.output) == len(b.output) == 4, uid)
-        ensure(a.reused_pages == b.reused_pages, uid)
+        ensure(len(a.output) == len(b.output) == new_tokens, uid)
         for x, y, la, lb in zip(a.output, b.output, a.logit_trace,
                                 b.logit_trace):
             sd = float(np.std(lb))
@@ -422,45 +618,95 @@ def small_check(dev):
             compared += 1
             if x != y:
                 break
-    ensure(gpu[3].reused_pages == 1)
+    return compared, worst
+
+
+def small_check(dev):
+    """Three requests through two slots of each engine, on the GPU (kernels)
+    and on the CPU (plain versions), in configuration (A): the paged engine
+    (two requests share a full page) and the contiguous ServingEngine.
+    Until the first step where the two pick different tokens both saw the
+    same tokens, so their logits must agree within the end-to-end
+    tolerance."""
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving import params as SP
+    from rsq_tpu_torch.serving.engine import ServingEngine
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    cfg = ModelConfig.tiny()
+    dense, quant = tiny_dense_model(cfg, seed=1)
+    sp = S.quantize_lm_head(S.stack_layer_params(SP.fuse_for_decode(
+        SP.to_serving_params(dense, quant, cfg, device="cpu"))))
+    sc = S.ServingConfig(model=cfg, max_seq=256, attn_int8_qk=True)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.vocab_size, 128)
+    prompts = [rng.integers(0, cfg.vocab_size, 40),
+               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 9)]),
+               np.concatenate([shared, rng.integers(0, cfg.vocab_size, 30)])]
+    out = {}
+    for kind in ("paged", "contiguous"):
+        runs = []
+        for d in ("cuda", "cpu"):
+            if kind == "paged":
+                eng = PagedServingEngine(tree_to(sp, d), sc, num_slots=2,
+                                         page_size=128, record_logits=True,
+                                         device=d)
+            else:
+                eng = ServingEngine(tree_to(sp, d), sc, num_slots=2,
+                                    record_logits=True, device=d)
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=4)
+            runs.append({r.uid: r for r in eng.run_until_done(max_steps=50)})
+        compared, worst = _compare_runs(*runs, (1, 2, 3), 4)
+        if kind == "paged":
+            ensure(runs[0][3].reused_pages == 1)
+            ensure(all(runs[0][u].reused_pages == runs[1][u].reused_pages
+                       for u in (1, 2, 3)))
+        out[kind] = {"logit_steps_compared": compared,
+                     "max_err_over_std": worst}
     return {"small": {"config": "tiny (2 layers, hidden 64, heads 4/2, "
-                                "intermediate 112, page 128)",
-                      "logit_steps_compared": compared,
-                      "max_err_over_std": worst,
-                      "tolerance_over_std": LOGIT_MAX}}
+                                "intermediate 112), W4A4 INT4-KV; paged at "
+                                "page 128, contiguous at max_seq 256",
+                      **out, "tolerance_over_std": LOGIT_MAX}}
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: serve Llama-3-8B widths and depth
 # ---------------------------------------------------------------------------
 
-def serve(dev, cfg, profile: bool):
-    from rsq_tpu_torch.kernels import KERNELS, LAUNCHES, reset_launches
-    from rsq_tpu_torch.serving import model as S
-    from rsq_tpu_torch.serving.params import random_serving_params
-    from rsq_tpu_torch.serving.paged import PagedServingEngine
-    t0 = time.perf_counter()
-    params = S.quantize_lm_head(random_serving_params(cfg, seed=0,
-                                                      device=dev))
-    torch.cuda.synchronize()
-    log(f"serve: params built in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    sc = S.ServingConfig(model=cfg, a4=True, kv_int4=True, kv_hadamard=True,
-                         online_had=True, max_seq=1024, attn_int8_qk=True)
-    batch, new_tokens = 8, 32
+BATCH, NEW_TOKENS = 8, 32
+PAGED_KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
+                 "int4_paged_decode_attention_self_append")
+CONTIG_KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
+                  "int4_decode_attention_self_append")
+BF16_KERNELS = ("bf16_decode_attention_stacked", "kv_append_stacked_bf16",
+                "w16_matmul_stacked")
+
+
+def serve_prompts(cfg):
+    """8 prompts of 100-700 tokens, two sharing a 600-token prefix."""
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 600)
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 40)]),
                np.concatenate([shared, rng.integers(0, cfg.vocab_size, 90)])]
     prompts += [rng.integers(0, cfg.vocab_size, int(n))
-                for n in rng.integers(100, 701, batch - 2)]
-    eng = PagedServingEngine(params, sc, num_slots=batch, page_size=512,
-                             record_logits=True, device=dev)
-    for p in prompts:
-        eng.add_request(p, max_new_tokens=new_tokens)
+                for n in rng.integers(100, 701, BATCH - 2)]
+    return prompts
 
-    reset_launches()                       # counts from here on: the main path
+
+def drive(eng, prompts, cfg, kernels):
+    """The main path of one engine: the launch counts and the peak memory
+    are reset just before the 8 admissions, then every slot decodes until
+    all requests finish.  Checks every request's token count, finite
+    logits (prefill and the first two steps) and that each of `kernels`
+    launched.  Returns (record, launches, finished requests)."""
+    from rsq_tpu_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=NEW_TOKENS)
+    eng.record_logits = True
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # counts from here on: the main path
     t0 = time.perf_counter()
     eng._admit()                           # the 8 prefills
     torch.cuda.synchronize()
@@ -484,58 +730,122 @@ def serve(dev, cfg, profile: bool):
         if nstep < 2:
             logit_rows += [r.logit_trace[-1] for r in eng.slots
                            if r is not None]
-        if len(step_s) > 4 * new_tokens:
+        if len(step_s) > 4 * NEW_TOKENS:
             raise AssertionError("serve loop did not finish")
     launches = {k: LAUNCHES[k] for k in KERNELS}
-    ensure(len(done) == batch, len(done))
+    ensure(len(done) == BATCH, len(done))
     for r in done:
-        ensure(len(r.output) == new_tokens, (r.uid, len(r.output)))
+        ensure(len(r.output) == NEW_TOKENS, (r.uid, len(r.output)))
         ensure(all(0 <= t < cfg.vocab_size for t in r.output))
-    reused = sorted(r.reused_pages for r in done)
-    ensure(reused[-1] == 1, f"prefix cache not hit: {reused}")
     for row in logit_rows:
         ensure(row.shape == (cfg.vocab_size,) and np.isfinite(row).all())
-    missing = [k for k in KERNELS if launches[k] == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     ensure(not missing, f"kernels never launched on the main path: {missing}")
 
     timed = step_s[2:-1] or step_s       # all 8 slots live, logits not copied
     step_ms = float(np.median(timed)) * 1e3
     prompt_tokens = int(sum(len(p) for p in prompts))
-    if profile:
-        profile_decode(eng, params, sc, dev)
-    return {"serve": {
-        "model": "llama3_8b widths, 32 layers, random W4A4 weights (seed 0)",
-        "batch": batch, "page": 512, "max_seq": 1024, "attn_int8_qk": True,
-        "int8_lm_head": True, "prompt_tokens": prompt_tokens,
+    return {
+        "batch": BATCH, "prompt_tokens": prompt_tokens,
         "prompt_lens": [len(p) for p in prompts],
-        "new_tokens_each": new_tokens, "prefix_pages_reused": reused,
+        "new_tokens_each": NEW_TOKENS,
         "prefill_ms_total": prefill_s * 1e3,
-        "prefill_ms_per_request": prefill_s * 1e3 / batch,
+        "prefill_ms_per_request": prefill_s * 1e3 / BATCH,
         "prefill_tok_s": prompt_tokens / prefill_s,
         "decode_ms_per_step_median": step_ms,
         "decode_ms_per_step_min": float(np.min(timed)) * 1e3,
         "decode_steps_timed": len(timed),
-        "decode_tok_s": batch / (step_ms / 1e3),
+        "decode_tok_s": BATCH / (step_ms / 1e3),
         "launches_per_decode_step": per_step,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}, launches
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}, \
+        launches, done
 
 
-def profile_decode(eng, params, sc, dev):
-    """One decode step of the live pool, all 8 rows at length 512: its wall
+def serve_paged(dev, cfg, params, prompts, profile: bool):
+    """PagedServingEngine, W4A4 INT4-KV, page 512, max_seq 1024."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    sc = S.ServingConfig(model=cfg, a4=True, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    eng = PagedServingEngine(params, sc, num_slots=BATCH, page_size=512,
+                             device=dev)
+    rec, launches, done = drive(eng, prompts, cfg, PAGED_KERNELS)
+    reused = sorted(r.reused_pages for r in done)
+    ensure(reused[-1] == 1, f"prefix cache not hit: {reused}")
+    if profile:
+        from rsq_tpu_torch.serving.paged import decode_step_paged_fast
+        ptab = torch.as_tensor(eng.page_tables, device=dev)
+        lengths = torch.full((BATCH,), 512, dtype=torch.int32, device=dev)
+        toks = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+        profile_decode("serve", lambda: decode_step_paged_fast(
+            params, eng.pool, ptab, lengths, toks, sc))
+    return {"serve": {
+        "model": "llama3_8b widths, 32 layers, random W4A4 weights (seed 0)",
+        "page": 512, "max_seq": 1024, "attn_int8_qk": True,
+        "int8_lm_head": True, "prefix_pages_reused": reused, **rec}}, launches
+
+
+def profile_contiguous(name, eng, dev):
+    """profile_decode of one step of a ServingEngine's cache."""
+    from rsq_tpu_torch.serving.model import decode_step_stacked
+    lengths = torch.full((BATCH,), 512, dtype=torch.int32, device=dev)
+    toks = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+
+    def step():
+        eng.cache["length"] = lengths
+        decode_step_stacked(eng.params, eng.cache, toks, eng.sc)
+
+    profile_decode(name, step)
+
+
+def serve_contiguous(dev, cfg, params, prompts, profile: bool):
+    """Configuration (A) on the contiguous slot cache: ServingEngine, W4A4
+    INT4-KV, max_seq 1024 (the bench's "contiguous" measurement)."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.engine import ServingEngine
+    sc = S.ServingConfig(model=cfg, a4=True, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    eng = ServingEngine(params, sc, num_slots=BATCH, device=dev)
+    rec, launches, _ = drive(eng, prompts, cfg, CONTIG_KERNELS)
+    if profile:
+        profile_contiguous("serve_contiguous", eng, dev)
+    return {"serve_contiguous": {
+        "model": "llama3_8b widths, 32 layers, random W4A4 weights (seed 0)",
+        "max_seq": 1024, "attn_int8_qk": True, "int8_lm_head": True,
+        **rec}}, launches
+
+
+def serve_bf16(dev, cfg, prompts, profile: bool):
+    """Configuration (B), the bf16 baseline: ServingEngine on dense bf16
+    weights (random_dense_params, about 15 GB), bf16 cache, no Hadamards,
+    bf16 lm_head (a torch.matmul, as the reference leaves it to XLA)."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.engine import ServingEngine
+    from rsq_tpu_torch.serving.params import random_dense_params
+    t0 = time.perf_counter()
+    params = random_dense_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve_bf16: params built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    sc = S.ServingConfig(model=cfg, a4=False, kv_int4=False,
+                         kv_hadamard=False, online_had=False, max_seq=1024)
+    eng = ServingEngine(params, sc, num_slots=BATCH, device=dev)
+    rec, launches, _ = drive(eng, prompts, cfg, BF16_KERNELS)
+    if profile:
+        profile_contiguous("serve_bf16", eng, dev)
+    return {"serve_bf16": {
+        "model": "llama3_8b widths, 32 layers, random dense bf16 weights "
+                 "(seed 0)", "max_seq": 1024, "bf16_lm_head": True,
+        **rec}}, launches
+
+
+def profile_decode(name, step):
+    """One decode step, step(), with all 8 rows at length 512: its wall
     time and the time the host takes to queue it (median of 5 unprofiled
     steps), the card's busy time in it, the host-side synchronisations and
     host-to-device copies it makes (torch.profiler), and the kernel table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    from rsq_tpu_torch.serving.paged import decode_step_paged_fast
-    B = eng.num_slots
-    ptab = torch.as_tensor(eng.page_tables, device=dev)
-    lengths = torch.full((B,), 512, dtype=torch.int32, device=dev)
-    toks = torch.zeros((B,), dtype=torch.int32, device=dev)
-
-    def step():
-        decode_step_paged_fast(params, eng.pool, ptab, lengths, toks, sc)
-
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -552,6 +862,7 @@ def profile_decode(eng, params, sc, dev):
         step()
         torch.cuda.synchronize()
     avg = prof.key_averages()
+    log(f"profile of one {name} decode step:")
     log(avg.table(sort_by="cuda_time_total", row_limit=25))
     calls = {e.key: e.count for e in avg}
     busy_ms = sum(e.self_device_time_total for e in avg
@@ -569,7 +880,7 @@ def profile_decode(eng, params, sc, dev):
                                if k in ("cudaLaunchKernel", "cuLaunchKernel",
                                         "cudaLaunchKernelExC",
                                         "cuLaunchKernelEx"))}
-    log(json.dumps({"profile": summary}))
+    log(json.dumps({"profile": {"phase": name, **summary}}))
 
 
 def main(argv):
@@ -584,6 +895,8 @@ def main(argv):
         sys.exit(f"chip_smoke: rsq_tpu_torch found at {pkg}, not in {ROOT}")
     from rsq_tpu_torch.kernels import cuda_build
     from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.params import random_serving_params
 
     # phase 1: device
     smi = nvidia_smi()
@@ -593,6 +906,7 @@ def main(argv):
         f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # phase 2: build
     build_s = cuda_build.build()
@@ -605,25 +919,63 @@ def main(argv):
     kernels = []
     for fn in (lambda: check_w4a4(dev, g), lambda: check_w8(dev, g),
                lambda: check_decode_prep(dev, g, cfg),
-               lambda: check_paged_attention(dev, g, cfg)):
+               lambda: check_paged_attention(dev, g, cfg),
+               lambda: check_contiguous_attention(dev, g, cfg),
+               lambda: check_bf16_attention(dev, g, cfg),
+               lambda: check_bf16_append(dev, g, cfg),
+               lambda: check_w16(dev, g, cfg)):
         t0 = time.perf_counter()
         kernels.append(fn())
         torch.cuda.empty_cache()
         log(f"kernel {kernels[-1]['name']}: ok "
             f"({time.perf_counter() - t0:.1f} s)")
 
-    # phase 4: small end-to-end check against the CPU
+    # phase 4: small end-to-end checks against the CPU
     small = small_check(dev)
     log(json.dumps(small))
 
-    # phase 5: serve
-    result, launches = serve(dev, cfg, profile)
-    result["serve"]["card"] = smi
+    # phase 5: serve -- each path's launch counts start at 0 just before it
+    prompts = serve_prompts(cfg)
+    t0 = time.perf_counter()
+    params = S.quantize_lm_head(random_serving_params(cfg, seed=0,
+                                                      device=dev))
+    torch.cuda.synchronize()
+    log(f"serve: W4A4 params built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    phases = []
+    for name, run in (
+            ("serve", lambda: serve_paged(dev, cfg, params, prompts,
+                                          profile)),
+            ("serve_contiguous", lambda: serve_contiguous(
+                dev, cfg, params, prompts, profile))):
+        t0 = time.perf_counter()
+        phases.append(run())
+        phases[-1][0][name]["card"] = smi
+        log(json.dumps(phases[-1][0]))
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases.append(serve_bf16(dev, cfg, prompts, profile))
+    phases[-1][0]["serve_bf16"]["card"] = smi
+    log(json.dumps(phases[-1][0]))
+    log(f"serve_bf16: {time.perf_counter() - t0:.1f} s")
+    step = {name: rec[name]["decode_ms_per_step_median"]
+            for rec, _ in phases for name in rec}
+    log(json.dumps({"record": {
+        "bf16_over_w4a4_contiguous_decode_ms":
+            step["serve_bf16"] / step["serve_contiguous"],
+        "smoke_s_after_device_check": time.perf_counter() - t_start}}))
+
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_decode_step"] = \
-            result["serve"]["launches_per_decode_step"][k["name"]]
-    log(json.dumps(result))
+        by_phase = {name: (launches[k["name"]],
+                           rec[name]["launches_per_decode_step"][k["name"]])
+                    for rec, launches in phases for name in rec
+                    if launches[k["name"]]}
+        k["launches"] = sum(n for n, _ in by_phase.values())
+        k["launches_by_phase"] = {n: v[0] for n, v in by_phase.items()}
+        k["launches_per_decode_step"] = {n: v[1] for n, v in by_phase.items()}
+        ensure(k["launches"] > 0, f"{k['name']} not on any main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

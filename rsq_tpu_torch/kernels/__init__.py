@@ -10,7 +10,10 @@ import ctypes
 import torch
 
 KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
-           "int4_paged_decode_attention_self_append")
+           "int4_paged_decode_attention_self_append",
+           "int4_decode_attention_self_append",
+           "bf16_decode_attention_stacked", "kv_append_stacked_bf16",
+           "w16_matmul_stacked")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -2,10 +2,11 @@
 with ctypes (plain C entry points; no PyTorch headers, so each source
 compiles in seconds).
 
-Each source becomes its own shared library, keyed by a hash of its text,
-in rsq_tpu_torch/_build/ (ignored by git).  `build()` starts one nvcc per
-missing library, all at once, and waits for them; `load(name)` builds on
-first use.  Nothing here runs at import time.
+Each source becomes its own shared library, keyed by a hash of its text
+and the shared headers' (csrc/*.cuh), in rsq_tpu_torch/_build/ (ignored by
+git).  `build()` starts one nvcc per missing library, all at once, and
+waits for them; `load(name)` builds on first use.  Nothing here runs at
+import time.
 
 Flags: sm_90a, -O3, and never --use_fast_math -- the kernels need IEEE
 division and round-half-even to reproduce the reference's integer codes.
@@ -29,6 +30,9 @@ SOURCES = {
     "w8_matmul": "w8_matmul.cu",
     "decode_prep": "decode_prep.cu",
     "paged_attention": "paged_attention.cu",
+    "contiguous_attention": "contiguous_attention.cu",
+    "bf16_attention": "bf16_attention.cu",
+    "w16_matmul": "w16_matmul.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -50,7 +54,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    text = (CSRC / SOURCES[name]).read_bytes()
+    # the headers are part of every source's key: a source may include them
+    text = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

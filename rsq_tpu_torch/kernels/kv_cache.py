@@ -1,14 +1,20 @@
-"""INT4 KV-cache pieces (the port of the parts of rsq_tpu.kernels.kv_cache
-on the paged serving path).
+"""KV-cache pieces of the serving paths (the port of
+rsq_tpu.kernels.kv_cache).
 
-Cache layout (sequence in the last axis, as in the reference): codes
+INT4 cache layout (sequence in the last axis, as in the reference): codes
 uint8 (..., D/2, S) with the low nibble holding d < D/2 and the high nibble
 d + D/2; params f32 (..., 2, S) = (scale, zero), dequant u*scale - zero.
+The contiguous slot cache is (L, B, Hkv, D/2, S) and (L, B, Hkv, 2, S).
+The bf16 cache is token-major: (L, B, Hkv, S, D).
 
-Kernel: decode_prep (csrc/decode_prep.cu), with its plain version here.
-attend_tile / self_fold_finalize are the plain math of the paged attention
-kernel (csrc/paged_attention.cu), following the reference's _attend_tile and
-_self_fold_finalize rounding points.
+Kernels, each with its plain version here:
+- decode_prep (csrc/decode_prep.cu)
+- int4_decode_attention_self_append (csrc/contiguous_attention.cu)
+- bf16_decode_attention_stacked, kv_append_stacked_bf16
+  (csrc/bf16_attention.cu)
+attend_tile / self_fold_finalize are the plain math of both INT4 attention
+kernels (csrc/int4_attention.cuh), following the reference's _attend_tile
+and _self_fold_finalize rounding points.
 """
 
 from __future__ import annotations
@@ -181,3 +187,247 @@ def self_fold_finalize(q_all, k_self, v_self, state):
     p = torch.exp(lg - m_fin)
     l_fin = l * alpha + p
     return (acc * alpha + p * v_self[:, :, None, :]) / l_fin
+
+
+def q_groups(q, Hkv, sm_scale=None):
+    """(B, Hq, D) -> f32 (B, Hkv, G, D) pre-scaled by sm_scale.  The
+    reference pads G to 8 rows for the TPU's sublanes; the port does not."""
+    B, Hq, D = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    return (q.float() * sm_scale).reshape(B, Hkv, Hq // Hkv, D)
+
+
+def empty_state(B, H, G, D, device):
+    """Online-softmax state (m, l, acc) before any token."""
+    return (torch.full((B, H, G, 1), -math.inf, device=device),
+            torch.zeros((B, H, G, 1), device=device),
+            torch.zeros((B, H, G, D), device=device))
+
+
+def pick_chunk(S: int, target: int) -> int:
+    """Largest sequence chunk <= target that divides S, preferring
+    128-multiples (the reference's tiling of the contiguous cache)."""
+    t = min(target, S)
+    for c in range(t - t % 128, 0, -128):
+        if S % c == 0:
+            return c
+    for c in range(t, 0, -1):
+        if S % c == 0:
+            return c
+    return S
+
+
+def merge_self_attention(out_old, m_old, l_old, q_scaled, k_self, v_self):
+    """Fold the current token's self-attention term into a decode kernel's
+    (out, m, l) state.  q_scaled: (B, Hkv, G, D) f32 already scaled by
+    sm_scale; k_self/v_self: (B, Hkv, 1, D) values of the token being
+    appended.  Returns (B, Hq, D) in out_old's dtype."""
+    B, Hq, D = out_old.shape
+    _, Hkv, G, _ = q_scaled.shape
+    logit = (q_scaled * k_self.float()).sum(dim=-1)           # (B, Hkv, G)
+    m_new = torch.maximum(m_old, logit)
+    alpha = torch.exp(m_old - m_new)
+    p = torch.exp(logit - m_new)
+    w_old = (l_old * alpha)[..., None]
+    o_old = out_old.float().reshape(B, Hkv, G, D)
+    # w_old == 0 (empty cache): o_old is 0/0, so mask it out of the merge
+    o_term = torch.where(w_old > 0, o_old * w_old, 0.0)
+    merged = (o_term + p[..., None] * v_self.float()) / (w_old + p[..., None])
+    return merged.reshape(B, Hq, D).to(out_old.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Contiguous INT4 attention with self fold and in-place append
+# ---------------------------------------------------------------------------
+
+def self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer, lengths,
+                      k_self, v_self, nkq, nkp, nvq, nvp, sm_scale=None,
+                      int8_qk=False):
+    """Plain PyTorch version: one attend_tile over the row's cache, the
+    self fold, then the in-place append of exactly one column."""
+    B, Hq, D = q.shape
+    Hkv = kq_all.shape[2]
+    qg = q_groups(q, Hkv, sm_scale)
+    lengths = lengths.to(torch.int64)
+    state = attend_tile(qg, kq_all[layer], kp_all[layer], vq_all[layer],
+                        vp_all[layer], 0, lengths,
+                        empty_state(B, Hkv, qg.shape[2], D, q.device),
+                        int8_qk=int8_qk)
+    out = self_fold_finalize(qg, k_self.float(), v_self.float(), state)
+    rows = torch.arange(B, device=q.device)
+    kq_all[layer, rows, :, :, lengths] = nkq
+    kp_all[layer, rows, :, :, lengths] = nkp
+    vq_all[layer, rows, :, :, lengths] = nvq
+    vp_all[layer, rows, :, :, lengths] = nvp
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def int4_decode_attention_self_append(q, kq_all, kp_all, vq_all, vp_all,
+                                      layer: int, lengths, k_self, v_self,
+                                      nkq, nkp, nvq, nvp, sm_scale=None,
+                                      int8_qk: bool = False):
+    """Self-folding decode attention over the contiguous slot cache + the
+    in-place append of the new token at position lengths[b] (< S).
+
+    q: (B, Hq, D) bf16, already per-head Hadamard-rotated like the keys;
+    caches (L, B, Hkv, D/2, S) u8 and (L, B, Hkv, 2, S) f32, updated in
+    place (the reference aliases them); lengths (B,) cached tokens;
+    k_self/v_self (B, Hkv, D) f32 dequantized new token; nkq/nvq
+    (B, Hkv, D/2) u8, nkp/nvp (B, Hkv, 2) f32 its cache contents.  Returns
+    out (B, Hq, D) bf16.  The reference also copies stale lanes into a
+    freshly opened 512-chunk past the length; the port writes only the
+    new column."""
+    require(q.dim() == 3 and kq_all.dim() == 5, "q (B, Hq, D), caches 5-D")
+    B, Hq, D = q.shape
+    L, Bc, Hkv, D2, S = kq_all.shape
+    require(Bc == B and D == 2 * D2 and Hq % Hkv == 0, "head shapes disagree")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(lengths.shape == (B,), "lengths (B,)")
+    require(q.dtype == torch.bfloat16, "q must be bf16")
+    require(kq_all.dtype == torch.uint8 and vq_all.dtype == torch.uint8
+            and kp_all.dtype == torch.float32 and vp_all.dtype == torch.float32,
+            "cache dtypes: u8 codes, f32 params")
+    require(kp_all.shape == (L, B, Hkv, 2, S) and vq_all.shape == kq_all.shape
+            and vp_all.shape == kp_all.shape, "cache shapes disagree")
+    require(nkq.shape == (B, Hkv, D2) and nkp.shape == (B, Hkv, 2)
+            and k_self.shape == (B, Hkv, D), "new-token shapes")
+    tensors = (q, kq_all, kp_all, vq_all, vp_all, lengths, k_self, v_self,
+               nkq, nkp, nvq, nvp)
+    if not on_cuda(tensors):
+        return self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
+                                 lengths, k_self, v_self, nkq, nkp, nvq, nvp,
+                                 sm_scale=sm_scale, int8_qk=int8_qk)
+    G = Hq // Hkv
+    require(D <= 128 and G <= 8, "kernel needs head_dim <= 128, Hq/Hkv <= 8")
+    require(all(t.is_contiguous() for t in (kq_all, kp_all, vq_all, vp_all)),
+            "caches must be contiguous (they are updated in place)")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    q = q.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    k_self, v_self = k_self.float().contiguous(), v_self.float().contiguous()
+    nkq, nvq = nkq.contiguous(), nvq.contiguous()
+    nkp, nvp = nkp.float().contiguous(), nvp.float().contiguous()
+    out = torch.empty_like(q)
+    fn = cuda_build.function(
+        "contiguous_attention", "contiguous_attention_self_append_launch",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
+            ptr(lens), ptr(k_self), ptr(v_self), ptr(nkq), ptr(nkp),
+            ptr(nvq), ptr(nvp), ptr(out), B, layer, Hkv, G, D, S, sm_scale,
+            int(int8_qk), recip_f32(127.0), stream(q))
+    cuda_build.check(rc, "int4_decode_attention_self_append")
+    LAUNCHES["int4_decode_attention_self_append"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bf16 cache: decode attention returning (out, m, l), and the append
+# ---------------------------------------------------------------------------
+
+def bf16_decode_attention_plain(q, k_all, v_all, layer, lengths,
+                                sm_scale=None):
+    """Plain PyTorch version: the kernel's rounding points over the whole
+    cache in one tile; rows of length 0 keep m = -inf, l = 0, out = 0/0."""
+    B, Hq, D = q.shape
+    Hkv = k_all.shape[2]
+    qb = q_groups(q, Hkv, sm_scale).to(torch.bfloat16).float()
+    k = k_all[layer].float()                                # (B, H, S, D)
+    logits = qb @ k.transpose(-1, -2)                       # (B, H, G, S)
+    live = torch.arange(k.shape[2], device=q.device)[None, :] \
+        < lengths.to(torch.int64)[:, None]
+    logits = torch.where(live[:, None, None, :], logits, MASK_VALUE)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = p.to(torch.bfloat16).float() @ v_all[layer].float()
+    m0, l0, acc0 = empty_state(B, Hkv, qb.shape[2], D, q.device)
+    row = (lengths > 0)[:, None, None, None]
+    m, l, acc = (torch.where(row, m, m0), torch.where(row, l, l0),
+                 torch.where(row, acc, acc0))
+    out = (acc / l).to(q.dtype).reshape(B, Hq, D)
+    return out, m[..., 0], l[..., 0]
+
+
+def bf16_decode_attention_stacked(q, k_all, v_all, layer: int, lengths,
+                                  sm_scale=None):
+    """Decode attention against layer `layer` of the stacked bf16 cache
+    k_all/v_all (L, B, Hkv, S, D), read in place, over the lengths[b]
+    cached tokens.  q: (B, Hq, D) bf16.  Returns (out (B, Hq, D) bf16,
+    m (B, Hkv, G) f32, l (B, Hkv, G) f32), the online-softmax state that
+    merge_self_attention folds the new token into."""
+    require(q.dim() == 3 and k_all.dim() == 5, "q (B, Hq, D), caches 5-D")
+    B, Hq, D = q.shape
+    L, Bc, Hkv, S, Dk = k_all.shape
+    require(Bc == B and Dk == D and Hq % Hkv == 0, "head shapes disagree")
+    require(v_all.shape == k_all.shape, "k/v caches disagree")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(lengths.shape == (B,), "lengths (B,)")
+    require(q.dtype == torch.bfloat16 and k_all.dtype == torch.bfloat16
+            and v_all.dtype == torch.bfloat16, "q and caches must be bf16")
+    if not on_cuda((q, k_all, v_all, lengths)):
+        return bf16_decode_attention_plain(q, k_all, v_all, layer, lengths,
+                                           sm_scale)
+    G = Hq // Hkv
+    require(D <= 128 and D % 8 == 0 and G <= 8,
+            "kernel needs head_dim <= 128 (a multiple of 8), Hq/Hkv <= 8")
+    require(k_all.is_contiguous() and v_all.is_contiguous(),
+            "caches must be contiguous")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    q = q.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = cuda_build.function(
+        "bf16_attention", "bf16_decode_attention_launch",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(ptr(q), ptr(k_all), ptr(v_all), ptr(lens), ptr(out), ptr(m),
+            ptr(l), B, layer, Hkv, G, D, S, sm_scale, stream(q))
+    cuda_build.check(rc, "bf16_decode_attention_stacked")
+    LAUNCHES["bf16_decode_attention_stacked"] += 1
+    return out, m, l
+
+
+def kv_append_bf16_plain(k, v, layer, pos, nk, nv):
+    """Plain PyTorch version: one indexed assignment per cache."""
+    rows = torch.arange(k.shape[1], device=k.device)
+    pos = pos.to(torch.int64)
+    k[layer, rows, :, pos] = nk[:, :, 0].to(k.dtype)
+    v[layer, rows, :, pos] = nv[:, :, 0].to(v.dtype)
+
+
+def kv_append_stacked_bf16(k, v, layer: int, pos, nk, nv):
+    """Write one token per sequence into layer `layer` of the stacked bf16
+    cache in place (the reference aliases it): k/v (L, B, H, S, D) with
+    S % 16 == 0, as the reference requires; pos (B,) write positions
+    (< S); nk/nv (B, H, 1, D)."""
+    require(k.dim() == 5 and v.shape == k.shape, "k/v (L, B, H, S, D)")
+    L, B, H, S, D = k.shape
+    # mirrored: the reference asserts full 16-row windows (kv_cache.py:946)
+    require(S % 16 == 0, f"bf16 cache max_seq {S} must be a multiple of 16 "
+            "(as in the reference)")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(pos.shape == (B,) and nk.shape == (B, H, 1, D)
+            and nv.shape == nk.shape, "pos (B,), nk/nv (B, H, 1, D)")
+    if not on_cuda((k, v, pos, nk, nv)):
+        kv_append_bf16_plain(k, v, layer, pos, nk, nv)
+        return
+    require(k.dtype == torch.bfloat16 and v.dtype == torch.bfloat16,
+            "kernel needs a bf16 cache")
+    require(k.is_contiguous() and v.is_contiguous(),
+            "caches must be contiguous (they are updated in place)")
+    nk = nk.to(torch.bfloat16).contiguous()
+    nv = nv.to(torch.bfloat16).contiguous()
+    p = pos.to(torch.int32).contiguous()
+    fn = cuda_build.function(
+        "bf16_attention", "kv_append_bf16_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(ptr(k), ptr(v), ptr(nk), ptr(nv), ptr(p), B, layer, H, D, S,
+            stream(k))
+    cuda_build.check(rc, "kv_append_stacked_bf16")
+    LAUNCHES["kv_append_stacked_bf16"] += 1

@@ -7,6 +7,7 @@ where byte (k, g*P + j) holds outputs (k, g*2P + j) [low nibble] and
 
 Kernels, each with its plain PyTorch version beside it:
 - w4a4_matmul_paired_stacked: csrc/w4a4_matmul.cu
+- w16_matmul_stacked: csrc/w16_matmul.cu
 - w8_matmul: csrc/w8_matmul.cu
 """
 
@@ -152,6 +153,56 @@ def w4a4_matmul_paired_stacked(x, wp_all, scale2, layer: int,
     require(x.is_contiguous() and wp_all.is_contiguous(), "contiguous inputs")
     return _w4a4_launch(x, wp_all, scale2.contiguous(), layer,
                         xs.reshape(M).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Dense 16-bit weights, stacked
+# ---------------------------------------------------------------------------
+
+def w16_matmul_stacked_plain(x, w_all, layer, out_dtype):
+    """Plain PyTorch version: f32 products and sums, one rounding."""
+    return (x.float() @ w_all[layer].float()).to(out_dtype)
+
+
+def w16_matmul_stacked(x, w_all, layer: int, out_dtype=None):
+    """y = x @ w_all[layer] for stacked dense (L, K, N) weights, the layer
+    read in place (no copy), f32 accumulation.  x: (M, K), cast to the
+    weights' dtype first when they differ (as the reference does); output
+    in out_dtype or x's dtype."""
+    require(x.dim() == 2 and w_all.dim() == 3, "x (M, K), w_all (L, K, N)")
+    M, K = x.shape
+    L, Kw, N = w_all.shape
+    require(K == Kw, f"K mismatch {K} vs {Kw}")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    out_dtype = out_dtype or x.dtype
+    if w_all.dtype != x.dtype:
+        x = x.to(w_all.dtype)
+    if not on_cuda((x, w_all)):
+        return w16_matmul_stacked_plain(x, w_all, layer, out_dtype)
+    require(w_all.dtype == torch.bfloat16, "kernel needs bf16 weights")
+    require(out_dtype in (torch.bfloat16, torch.float32),
+            "kernel writes bf16 or f32")
+    require(K % 8 == 0 and N % 8 == 0, "kernel needs K % 8 == 0, N % 8 == 0")
+    require(w_all.is_contiguous(), "w_all must be contiguous")
+    x = x.contiguous()
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    # split K (in 64-value steps) until ~4 blocks per SM are in flight;
+    # the slices are summed in order by a second pass (deterministic)
+    blocks = -(-N // 128) * (1 if M <= 16 else -(-M // 64))
+    nsplit = max(1, min(-(-528 // blocks), -(-K // 64)))
+    kchunk = -(-K // nsplit)
+    kchunk = -(-kchunk // 64) * 64
+    nsplit = -(-K // kchunk)
+    part = (torch.empty((nsplit, M, N), dtype=torch.float32, device=x.device)
+            if nsplit > 1 else y)
+    fn = cuda_build.function(
+        "w16_matmul", "w16_matmul_stacked_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(ptr(x), ptr(w_all[layer]), ptr(y), ptr(part), M, K, N, kchunk,
+            int(out_dtype == torch.float32), stream(x))
+    cuda_build.check(rc, "w16_matmul_stacked")
+    LAUNCHES["w16_matmul_stacked"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------

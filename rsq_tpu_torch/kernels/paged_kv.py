@@ -5,9 +5,11 @@ The cache is a global page pool shared by all sequences, layout
 (L, P, Hkv, D/2, page) uint8 codes and (L, P, Hkv, 2, page) f32 params; a
 sequence owns a row of page ids (the page table).
 
-Kernel: int4_paged_decode_attention_self_append (csrc/paged_attention.cu),
-with its plain version here.  It replaces both the reference's grid and
-flat Pallas kernels.  Pages must hold a multiple of 128 tokens.
+Kernel: int4_paged_decode_attention_self_append (csrc/paged_attention.cu,
+on the device body it shares with the contiguous kernel in
+csrc/int4_attention.cuh), with its plain version here.  It replaces both
+the reference's grid and flat Pallas kernels.  Pages must hold a multiple
+of 128 tokens.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from rsq_tpu_torch.core.numerics import recip_f32
 from rsq_tpu_torch.kernels import (LAUNCHES, cuda_build, on_cuda, ptr,
                                    require, stream)
 from rsq_tpu_torch.kernels.kv_cache import (asym_quant_pack_head,
-                                            attend_tile, self_fold_finalize,
+                                            attend_tile, empty_state,
+                                            q_groups, self_fold_finalize,
                                             to_lane_major)
 
 
@@ -48,15 +51,6 @@ def quantize_prompt(k_bhsd, hadamard: bool):
     return to_lane_major(*asym_quant_pack_head(k_bhsd))
 
 
-def _paged_q_prep(q, Hkv, sm_scale=None):
-    """(B, Hq, D) -> f32 (B, Hkv, G, D) pre-scaled by sm_scale.  The
-    reference pads G to 8 rows for the TPU's sublanes; the port does not."""
-    B, Hq, D = q.shape
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    return (q.float() * sm_scale).reshape(B, Hkv, Hq // Hkv, D)
-
-
 def _gather(pool_layer, page_table):
     """(P, H, x, page) pages of each row -> (B, H, x, NP*page)."""
     g = pool_layer[page_table]                    # (B, NP, H, x, page)
@@ -72,12 +66,9 @@ def paged_self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
     B, Hq, D = q.shape
     Hkv = kq_all.shape[2]
     page = kq_all.shape[-1]
-    qg = _paged_q_prep(q, Hkv, sm_scale)
-    G = qg.shape[2]
+    qg = q_groups(q, Hkv, sm_scale)
     dev = q.device
-    state = (torch.full((B, Hkv, G, 1), -math.inf, device=dev),
-             torch.zeros((B, Hkv, G, 1), device=dev),
-             torch.zeros((B, Hkv, G, D), device=dev))
+    state = empty_state(B, Hkv, qg.shape[2], D, dev)
     lengths = lengths.to(torch.int64)
     ptab = page_table.to(torch.int64)
     state = attend_tile(qg, _gather(kq_all[layer], ptab),

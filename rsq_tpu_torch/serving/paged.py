@@ -7,11 +7,13 @@ request sharing that prefix reuses them and prefills only its tail,
 attending to the cached prefix through the pool.  A cached page is
 immutable while shared: appends only touch pages past the owner's prompt.
 
-Prefill is plain PyTorch around the W4A4 and int8 lm_head kernels; each
-decode step runs, per layer, W4A4 (qkv) -> decode_prep -> paged attention
-with in-place append -> W4A4 (o) -> W4A4 (up-gate) -> W4A4 (down), then the
-int8 lm_head.  Pages must hold a multiple of 128 tokens: smaller pages need
-the reference's separate append and read-only paged kernels, not ported yet.
+Prefill is plain PyTorch around the linear and lm_head kernels; each
+decode step runs, per layer, the qkv linear(s) -> decode_prep -> paged
+attention with in-place append -> o -> up/gate -> down, then the lm_head.
+Params may be fused W4A4 (fuse_for_decode: qkv, upgate) or unfused (q, k,
+v, up, gate), W4A4 or dense bf16, as serving/model._linear_fast dispatches
+them.  Pages must hold a multiple of 128 tokens: smaller pages need the
+reference's separate append and read-only paged kernels, not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from rsq_tpu_torch.kernels import paged_kv as PKV
 from rsq_tpu_torch.kernels.kv_cache import decode_prep, unpack_dequant_head
 from rsq_tpu_torch.models import llama as M
 from rsq_tpu_torch.serving.model import (ServingConfig, _fast_path_helpers,
-                                         _linear_fast, _sl, lm_head_logits,
+                                         _sl, attn_out_fast, lm_head_logits,
+                                         mlp_fast, qkv_fast,
                                          stack_layer_params)
 from rsq_tpu_torch.serving.native import PyPageAllocator
 
@@ -82,17 +85,6 @@ def _gather_layer_prefix(pool, layer: int, page_ids):
     return grab("kq", "kp"), grab("vq", "vp")
 
 
-def _mlp(ls, i, x, cfg, sc, mix_act):
-    """Post-attention half of a layer on (tokens, d) rows of x (1|B, s, d)."""
-    h2 = M.rms_norm(x, _sl(ls.get("post_norm"), i), cfg.rms_norm_eps)
-    up, gate = _linear_fast(h2.reshape(-1, h2.shape[-1]), ls["upgate"], i, sc)
-    act = torch.nn.functional.silu(gate.float()).to(h2.dtype) * up
-    if sc.online_had:
-        act = mix_act(act)
-    down = _linear_fast(act, ls["down"], i, sc)
-    return x + down.reshape(x.shape).to(x.dtype)
-
-
 def _prefill_paged_local(params, pool, page_row, input_tail,
                          sc: ServingConfig, prefix_pages: int,
                          prefix_len: int, prompt_len: int):
@@ -122,7 +114,7 @@ def _prefill_paged_local(params, pool, page_row, input_tail,
 
     for i in range(L):
         h = M.rms_norm(x, _sl(ls.get("input_norm"), i), cfg.rms_norm_eps)
-        q, k, v = _linear_fast(h.reshape(st, -1), ls["qkv"], i, sc)
+        q, k, v = qkv_fast(ls, h.reshape(st, -1), i, sc)
         q = M.apply_rope(q.reshape(1, st, nq, hd), cos, sin)
         k = M.apply_rope(k.reshape(1, st, nkv, hd), cos, sin)
         v = v.reshape(1, st, nkv, hd)
@@ -143,12 +135,9 @@ def _prefill_paged_local(params, pool, page_row, input_tail,
         else:
             attn = M.attention(q, M.repeat_kv(k, nrep), M.repeat_kv(v, nrep),
                                mask[:, prefix_len:])
-        attn = attn.reshape(1, st, nq * hd)
-        if sc.online_had:
-            attn = mix_heads(attn)
-        o = _linear_fast(attn.reshape(st, -1), ls["o"], i, sc)
-        x = x + o.reshape(1, st, -1).to(x.dtype)
-        x = _mlp(ls, i, x, cfg, sc, mix_act)
+        x = attn_out_fast(ls, i, x, attn.reshape(1, st, nq * hd), sc,
+                          mix_heads)
+        x = mlp_fast(ls, i, x, cfg, sc, mix_act)
 
     last = prompt_len - prefix_len - 1
     x = M.rms_norm(x[:, last:last + 1], params.get("final_norm"),
@@ -169,9 +158,9 @@ def prefill_paged_fast(params, pool, page_row, input_tail, sc: ServingConfig,
 
 def _decode_paged_local(params, pool, page_tables, lengths, token_ids,
                         sc: ServingConfig):
-    """One joint decode step over all slots: per layer the four W4A4
-    kernels, decode_prep, and the paged attention kernel that folds the new
-    token in and appends it to the pool in place."""
+    """One joint decode step over all slots: per layer the linears,
+    decode_prep, and the paged attention kernel that folds the new token in
+    and appends it to the pool in place."""
     cfg = sc.cfg
     ls = params["layers_stacked"]
     L = pool["kq"].shape[0]
@@ -184,7 +173,7 @@ def _decode_paged_local(params, pool, page_tables, lengths, token_ids,
     cos, sin = M.rope_tables(cfg, lengths)                   # (B, hd)
     for i in range(L):
         h = M.rms_norm(x, _sl(ls.get("input_norm"), i), cfg.rms_norm_eps)
-        q, k, v = _linear_fast(h.reshape(b, -1), ls["qkv"], i, sc)
+        q, k, v = qkv_fast(ls, h.reshape(b, -1), i, sc)
         qh, k_self, v_self, kq_, kp_, vq_, vp_ = decode_prep(
             q.reshape(b, nq, hd), k.reshape(b, nkv, hd),
             v.reshape(b, nkv, hd), cos, sin, kv_had=sc.kv_hadamard)
@@ -192,12 +181,9 @@ def _decode_paged_local(params, pool, page_tables, lengths, token_ids,
             qh, pool["kq"], pool["kp"], pool["vq"], pool["vp"], i,
             page_tables, lengths, k_self, v_self, kq_, kp_, vq_, vp_,
             int8_qk=sc.attn_int8_qk)
-        attn = attn.reshape(b, 1, nq * hd)
-        if sc.online_had:
-            attn = mix_heads(attn)
-        o = _linear_fast(attn.reshape(b, -1), ls["o"], i, sc)
-        x = x + o.reshape(b, 1, -1).to(x.dtype)
-        x = _mlp(ls, i, x, cfg, sc, mix_act)
+        x = attn_out_fast(ls, i, x, attn.reshape(b, 1, nq * hd), sc,
+                          mix_heads)
+        x = mlp_fast(ls, i, x, cfg, sc, mix_act)
 
     x = M.rms_norm(x, params.get("final_norm"), cfg.rms_norm_eps)
     return lm_head_logits(params, x)[:, 0], pool
@@ -243,11 +229,6 @@ class PagedServingEngine:
         cfg = sc.cfg
         if "layers_stacked" not in params:
             params = stack_layer_params(params)
-        missing = {"qkv", "o", "upgate", "down"} - set(params["layers_stacked"])
-        if missing:
-            raise NotImplementedError(
-                "only fused W4A4 serving params (fuse_for_decode) are ported; "
-                f"missing {sorted(missing)}")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")

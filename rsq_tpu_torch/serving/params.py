@@ -187,3 +187,30 @@ def random_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     emb = (torch.randn((v, d), generator=g, device=dev) * 0.01).to(torch.bfloat16)
     return {"embed": emb, "final_norm": None, "lm_head": emb.T.contiguous(),
             "layers_stacked": stacked}
+
+
+def random_dense_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """Stacked dense bf16 serving params made on `device` from a seeded
+    torch.Generator (the port's counterpart of bench.py's
+    build_bf16_params, the bf16 baseline): unfused q, k, v, o, up, gate,
+    down as {"w": (L, K, N) bf16 at scale 0.1/sqrt(K), "b": None}, no
+    norms, a bf16 embedding with lm_head = embed.T."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = cfg.num_layers
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def dense(k, n):
+        w = torch.randn((L, k, n), generator=g, device=dev,
+                        dtype=torch.bfloat16) * (0.1 / math.sqrt(k))
+        return {"w": w, "b": None}
+
+    stacked = {
+        "input_norm": None, "post_norm": None,
+        "q": dense(d, cfg.q_dim), "k": dense(d, cfg.kv_dim),
+        "v": dense(d, cfg.kv_dim), "o": dense(cfg.q_dim, d),
+        "up": dense(d, f), "gate": dense(d, f), "down": dense(f, d),
+    }
+    emb = (torch.randn((v, d), generator=g, device=dev) * 0.01).to(torch.bfloat16)
+    return {"embed": emb, "final_norm": None, "lm_head": emb.T.contiguous(),
+            "layers_stacked": stacked}

@@ -115,3 +115,104 @@ def test_paged_attention_matches_plain(dev, int8_qk):
                                atol=2e-3)
     for g, w in zip(gpu_pool, cpu_pool):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _int4_cache(rng, L, B, H, D, S):
+    def params():
+        return torch.from_numpy(np.stack(
+            [rng.uniform(0.01, 0.2, (L, B, H, S)),
+             rng.uniform(-0.5, 0.5, (L, B, H, S))], 3).astype(np.float32))
+    return [torch.from_numpy(rng.integers(0, 256, (L, B, H, D // 2, S),
+                                          dtype=np.uint8)), params(),
+            torch.from_numpy(rng.integers(0, 256, (L, B, H, D // 2, S),
+                                          dtype=np.uint8)), params()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [512, 320])
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_contiguous_attention_matches_plain(dev, int8_qk, S):
+    """As the paged kernel (same device body): output within 2 bf16
+    roundings, caches bit-equal after the in-place append.  S = 320 ends
+    in a partial 128-token tile."""
+    rng = np.random.default_rng(3)
+    L, B, Hkv, G, D = 2, 4, 8, 4, 128
+    cache = _int4_cache(rng, L, B, Hkv, D, S)
+    lengths = torch.tensor([300, 128, 0, S - 1], dtype=torch.int32)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2
+                          ).astype(np.float32)).to(torch.bfloat16)
+    nkq, nkp = TKV.asym_quant_pack_head(torch.from_numpy(
+        rng.standard_normal((B, Hkv, D)).astype(np.float32)))
+    nvq, nvp = TKV.asym_quant_pack_head(torch.from_numpy(
+        rng.standard_normal((B, Hkv, D)).astype(np.float32)))
+    rest = [lengths, TKV.unpack_dequant_head(nkq, nkp),
+            TKV.unpack_dequant_head(nvq, nvp), nkq, nkp, nvq, nvp]
+    cpu = [t.clone() for t in cache]
+    gpu = [t.to(dev) for t in cache]
+    want = TKV.int4_decode_attention_self_append(q, *cpu, 1, *rest,
+                                                 int8_qk=int8_qk)
+    got = TKV.int4_decode_attention_self_append(
+        q.to(dev), *gpu, 1, *(t.to(dev) for t in rest), int8_qk=int8_qk)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=4 * BF16_EPS,
+                               atol=2e-3)
+    for g, w in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_bf16_attention_matches_plain(dev):
+    """m and l within 1e-5 relative (f32 sums in another order); out within
+    2 bf16 roundings where l > 0; the empty row gives -inf, 0 and 0/0."""
+    rng = np.random.default_rng(4)
+    L, B, Hkv, G, D, S = 2, 4, 8, 4, 128, 512
+    lengths = torch.tensor([200, 64, 0, 511], dtype=torch.int32)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(torch.bfloat16)
+               for s in ((B, Hkv * G, D), (L, B, Hkv, S, D), (L, B, Hkv, S, D)))
+    want = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
+    got = TKV.bf16_decode_attention_stacked(q.to(dev), k.to(dev), v.to(dev), 1,
+                                            lengths.to(dev))
+    live = (lengths > 0).numpy()
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = f32(g), f32(w)
+        if i == 0:
+            np.testing.assert_allclose(g[live], w[live], rtol=4 * BF16_EPS,
+                                       atol=2e-3)
+            assert np.isnan(g[~live]).all()
+        else:
+            np.testing.assert_allclose(g[live], w[live], rtol=1e-5)
+            np.testing.assert_array_equal(g[~live], w[~live])
+
+
+@pytest.mark.cuda
+def test_bf16_append_matches_plain(dev):
+    rng = np.random.default_rng(5)
+    L, B, H, S, D = 2, 4, 8, 64, 128
+    k, v = (torch.from_numpy(rng.standard_normal((L, B, H, S, D))
+                             .astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    nk, nv = (torch.from_numpy(rng.standard_normal((B, H, 1, D))
+                               .astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    pos = torch.tensor([0, 7, 16, S - 1], dtype=torch.int32)
+    kg, vg = k.to(dev), v.to(dev)
+    TKV.kv_append_stacked_bf16(k, v, 1, pos, nk, nv)
+    TKV.kv_append_stacked_bf16(kg, vg, 1, pos.to(dev), nk.to(dev), nv.to(dev))
+    assert torch.equal(kg.cpu(), k) and torch.equal(vg.cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 8, 130])
+@pytest.mark.parametrize("K,N", [(512, 256), (1024, 1024)])
+def test_w16_matches_plain(dev, M, K, N):
+    """f32 sums in another order, one bf16 rounding: within 2^-7 relative
+    plus 1e-5 of the largest output (cancelling sums)."""
+    rng = np.random.default_rng(M + K)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((2, K, N)) / np.sqrt(K))
+                         .astype(np.float32)).to(torch.bfloat16)
+    want = f32(TMW.w16_matmul_stacked(x, w, 1))
+    got = f32(TMW.w16_matmul_stacked(x.to(dev), w.to(dev), 1))
+    np.testing.assert_allclose(got, want, rtol=2 * BF16_EPS,
+                               atol=1e-5 * np.abs(want).max())

@@ -15,6 +15,7 @@ import torch
 import rsq_tpu_torch
 from rsq_tpu_torch.kernels import paged_kv as TPKV
 from rsq_tpu_torch.models.config import ModelConfig
+from rsq_tpu_torch.serving import engine as TE
 from rsq_tpu_torch.serving import model as TS
 from rsq_tpu_torch.serving import paged as TPG
 from rsq_tpu_torch.serving import params as TP
@@ -30,7 +31,8 @@ def all_modules():
 
 def test_modules_import_without_jax_or_rsq_tpu():
     mods = all_modules()
-    assert "rsq_tpu_torch.serving.paged" in mods
+    assert {"rsq_tpu_torch.serving.paged",
+            "rsq_tpu_torch.serving.engine"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -53,7 +55,9 @@ def _needs_no_gpu():
 
 @pytest.mark.parametrize("entry", ["init_pool", "from_numpy_params",
                                    "to_serving_params",
-                                   "random_serving_params", "engine"])
+                                   "random_serving_params", "engine",
+                                   "init_cache", "random_dense_params",
+                                   "serving_engine"])
 def test_default_device_raises_without_cuda(entry):
     _needs_no_gpu()
     cfg = ModelConfig.tiny()
@@ -67,6 +71,13 @@ def test_default_device_raises_without_cuda(entry):
         "engine": lambda: TPG.PagedServingEngine(
             TP.random_serving_params(cfg, device="cpu"),
             TS.ServingConfig(model=cfg, max_seq=256)),
+        "init_cache": lambda: TS.init_cache(
+            TS.ServingConfig(model=cfg, max_seq=256), 2),
+        "random_dense_params": lambda: TP.random_dense_params(cfg),
+        "serving_engine": lambda: TE.ServingEngine(
+            TP.random_dense_params(cfg, device="cpu"),
+            TS.ServingConfig(model=cfg, a4=False, kv_int4=False,
+                             max_seq=256)),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()
