@@ -6,22 +6,28 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
   1. device  -- require CUDA; print the card's name and power limit.
   2. build   -- nvcc the CUDA sources of rsq_tpu_torch/csrc, in parallel.
-  3. kernels -- each of the eight kernels against its plain PyTorch version
+  3. kernels -- each of the eleven kernels against its plain PyTorch version
                 on the card at the Llama-3-8B serving shapes, with the
                 tolerance stated beside each check; kernel, plain and
                 library-call times (CUDA events) and the least time the
                 card could take.
-  4. small   -- a tiny model served on the GPU (kernels) and on the CPU
-                (plain versions) by the paged and the contiguous engine:
-                the logits must agree.
-  5. serve   -- three paths at full Llama-3-8B width and depth, 8 requests
+  4. small   -- tiny models served on the GPU (kernels) and on the CPU
+                (plain versions) by the paged and the contiguous engine, in
+                three configurations (W4A4, W4A16 with an int4 lm_head,
+                E8P): the logits must agree.
+  5. serve   -- five paths at full Llama-3-8B width and depth, 8 requests
                 of 100-700 prompt tokens (two sharing a 600-token prefix),
                 32 new tokens each; each path's kernel launch counts start
                 at 0 just before it and must rise:
                 serve            PagedServingEngine, W4A4 INT4-KV, page 512
-                serve_contiguous ServingEngine, the same W4A4 weights
+                serve_contiguous ServingEngine, the same W4A4 weights (A)
+                serve_w4         PagedServingEngine, the same weights served
+                                 weight-only (a4=False), int4 lm_head (C)
+                serve_e8p        ServingEngine, E8P weights as affine int4,
+                                 INT4-KV (D)
                 serve_bf16       ServingEngine, dense bf16 weights and cache
-                (the bf16 baseline), built after the W4A4 params are freed.
+                                 (the bf16 baseline, B)
+                One set of weights is live at a time.
 Then one JSON line per phase result, the kernels line, the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  --profile adds, after
 each serve phase, a torch.profiler table of one decode step and a
@@ -124,6 +130,18 @@ def timings(kernel, plain, library=None):
             "library_ms": None if library is None else time_ms(library)}
 
 
+def matmul_err(got, want, what) -> float:
+    """The matmul kernels' check: f32 sums in another order, then one bf16
+    rounding each, so within two bf16 rounding units of the plain version,
+    plus 1e-5 of its largest output for cancelling sums.  Returns the max
+    error; raises beyond the tolerance."""
+    e = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    if not bool((e <= 2 * BF16_EPS * w + 1e-5 * float(w.max())).all()):
+        raise AssertionError(f"{what}: max err {float(e.max())}")
+    return float(e.max())
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -195,9 +213,33 @@ def check_w4a4(dev, g):
             "cases": cases}
 
 
+def _head_cases(dev, g, K, N, run, plain, w_deq, weight_bytes):
+    """An lm_head kernel at both of its main-path shapes, M=8 at decode and
+    M=1 for the last prompt token, against its plain version (matmul_err)
+    and timed, with torch.matmul of x and the bf16 weights w_deq as the
+    library yardstick.  Returns (cases, max error); the caller's top-level
+    times are M=8's."""
+    cases, err = [], 0.0
+    for M in (8, 1):
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        got, want = run(x), plain(x)
+        torch.cuda.synchronize()
+        err = max(err, matmul_err(got, want, f"lm_head M={M}"))
+        t = timings(lambda i=0: run(x), lambda i=0: plain(x),
+                    lambda i=0: torch.matmul(x, w_deq))
+        b, by = bound_ms(M * K * 2 + weight_bytes + N * 4 + M * N * 2,
+                         2.0 * M * K * N, "bf16")
+        cases.append({"M": M, **t, "bound_ms": b, "bound_by": by})
+    return cases, err
+
+
+def _head_entry(cases):
+    return {k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")}
+
+
 def check_w8(dev, g):
-    """The lm_head at both of its main-path shapes: M=8 at decode, M=1 for
-    the last prompt token at prefill.  The top-level times are M=8's."""
+    """The int8 lm_head (8, 4096) x (4096, 128256), at M=8 and M=1."""
     from rsq_tpu_torch.kernels import matmul_w4 as MW
     K, N = 4096, 128256
     w8 = torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=g,
@@ -205,34 +247,15 @@ def check_w8(dev, g):
     scale = (torch.rand((N,), generator=g, device=dev) + 0.5) / (
         127 * math.sqrt(K))
     w_deq = (w8.float() * scale).to(torch.bfloat16)
-    cases, err = [], 0.0
-    for M in (8, 1):
-        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-        got = MW.w8_matmul(x, w8, scale)
-        want = MW.w8_matmul_plain(x, w8, scale)
-        torch.cuda.synchronize()
-        e = (got.float() - want.float()).abs()
-        # f32 sums in another order, then one bf16 rounding each: within two
-        # bf16 rounding units, plus an absolute floor for cancelling sums
-        tol = 2 * BF16_EPS * want.float().abs() + 1e-5 * float(
-            want.float().abs().max())
-        if not bool((e <= tol).all()):
-            raise AssertionError(f"w8_matmul M={M}: max err {float(e.max())}")
-        err = max(err, float(e.max()))
-        t = timings(lambda i=0: MW.w8_matmul(x, w8, scale),
-                    lambda i=0: MW.w8_matmul_plain(x, w8, scale),
-                    lambda i=0: torch.matmul(x, w_deq))
-        b, by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * 2,
-                         2.0 * M * K * N, "bf16")
-        cases.append({"M": M, **t, "bound_ms": b, "bound_by": by})
+    cases, err = _head_cases(dev, g, K, N,
+                             lambda x: MW.w8_matmul(x, w8, scale),
+                             lambda x: MW.w8_matmul_plain(x, w8, scale),
+                             w_deq, K * N)
     del w_deq
     return {"name": "w8_matmul", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/w8_matmul.cu",
             "replaces": "rsq_tpu/kernels/matmul_w4.py:899",
-            "max_abs_err": err,
-            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
-                                        "library_ms", "bound_ms",
-                                        "bound_by")},
+            "max_abs_err": err, **_head_entry(cases),
             "unit": "lm_head (8, 4096) x (4096, 128256)",
             "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1)",
             "cases": cases}
@@ -523,14 +546,7 @@ def check_w16(dev, g, cfg):
             got = MW.w16_matmul_stacked(x, w, 1)
             want = MW.w16_matmul_stacked_plain(x, w, 1, torch.bfloat16)
             torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs()
-            # f32 sums in another order, one bf16 rounding each
-            tol = 2 * BF16_EPS * want.float().abs() + 1e-5 * float(
-                want.float().abs().max())
-            if not bool((e <= tol).all()):
-                raise AssertionError(f"w16 {name} M={M}: max err "
-                                     f"{float(e.max())}")
-            err = max(err, float(e.max()))
+            err = max(err, matmul_err(got, want, f"w16 {name} M={M}"))
             t = timings(
                 rotating(lambda j: MW.w16_matmul_stacked(x, w, j), copies),
                 rotating(lambda j: MW.w16_matmul_stacked_plain(
@@ -555,6 +571,143 @@ def check_w16(dev, g, cfg):
             "library": "torch.matmul(x, w_all[i])",
             "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
             "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "cases": cases}
+
+
+def _planes(wp):
+    """Packed bytes (..., K, Nh) -> the two nibble planes as f32 (..., K, 2Nh)."""
+    w = wp.to(torch.int32)
+    return torch.cat([(w << 28) >> 28, (w << 24) >> 28], dim=-1).float()
+
+
+def _w4_cases(dev, g, shapes, run, plain, scales, scale_bytes):
+    """The weight-only kernels at M = 8 and M = 1024 on each (K, Nh, calls
+    per layer) shape, against the plain version (matmul_err) and timed,
+    with torch.matmul of x and the bf16 dequantized weights as the library
+    yardstick.  run/plain(x, wp, s, j) call the
+    wrapper and its plain version on layer j; scales(L, K, Nh) returns the
+    scale operand s and deq(planes, s, j), layer j's dense weights;
+    scale_bytes(M, Nh) is what the function reads besides x and the
+    weights.  Returns (cases, max error)."""
+    cases, err = [], 0.0
+    for name, (K, Nh, uses) in shapes.items():
+        copies = max(2, -(-128 * 2**20 // (K * Nh)))      # > the L2 per loop
+        wp = torch.randint(0, 256, (copies, K, Nh), dtype=torch.uint8,
+                           generator=g, device=dev)
+        s, deq = scales(copies, K, Nh)
+        lib_copies = max(2, -(-128 * 2**20 // (K * Nh * 4)))
+        w_deq = [deq(_planes(wp[j]), s, j).to(torch.bfloat16)
+                 for j in range(lib_copies)]
+        for M in (8, 1024):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            got, want = run(x, wp, s, 1), plain(x, wp, s, 1)
+            torch.cuda.synchronize()
+            err = max(err, matmul_err(got, want, f"{name} M={M}"))
+            t = timings(rotating(lambda j: run(x, wp, s, j), copies),
+                        rotating(lambda j: plain(x, wp, s, j), copies),
+                        rotating(lambda j: torch.matmul(x, w_deq[j]),
+                                 lib_copies))
+            nbytes = M * K * 2 + K * Nh + scale_bytes(M, Nh) + M * 2 * Nh * 2
+            b, by = bound_ms(nbytes, 2.0 * M * K * 2 * Nh, "bf16")
+            cases.append({"proj": name, "M": M, "K": K, "Nh": Nh,
+                          "per_layer": uses, **t, "bound_ms": b,
+                          "bound_by": by})
+        del wp, w_deq
+    return cases, err
+
+
+def _layer_total(cases):
+    dec = [c for c in cases if c["M"] == 8]
+    return {**{k: sum(c[k] * c["per_layer"] for c in dec)
+               for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "bound_ms")},
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in dec)
+            else "operations"}
+
+
+def check_w4(dev, g, cfg):
+    """Row 13 on the fused plane-major projections of configuration (C),
+    at decode (M=8) and the largest prefill bucket (M=1024).  The
+    top-level times are one decode layer's four calls."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"qkv": (d, (cfg.q_dim + 2 * cfg.kv_dim) // 2, 1),
+              "o": (cfg.q_dim, d // 2, 1), "upgate": (d, f, 1),
+              "down": (f, d // 2, 1)}
+
+    def scales(L, K, Nh):
+        s2 = (torch.rand((L, 2, Nh), generator=g, device=dev) + 0.5) / (
+            7 * math.sqrt(K))
+        return s2, lambda planes, s, j: planes * s[j].reshape(1, 2 * Nh)
+
+    cases, err = _w4_cases(
+        dev, g, shapes,
+        lambda x, wp, s, j: MW.w4_matmul_paired_stacked(x, wp, s[j], j),
+        lambda x, wp, s, j: MW.w4_matmul_paired_stacked_plain(x, wp, s[j], j),
+        scales, lambda M, Nh: 2 * Nh * 4)            # the paired scales
+    return {"name": "w4_matmul_paired_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:665",
+            "max_abs_err": err, **_layer_total(cases),
+            "library": "torch.matmul(x, bf16 dequantized weights)",
+            "unit": "one decode layer: qkv, o, upgate, down at M=8",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "cases": cases}
+
+
+def check_w4_affine(dev, g, cfg):
+    """Row 14 on the seven unfused projections of configuration (D) (four
+    shapes), at M=8 and M=1024.  The top-level times are one decode
+    layer's seven calls."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"q|o": (d, cfg.q_dim // 2, 2), "k|v": (d, cfg.kv_dim // 2, 2),
+              "up|gate": (d, f // 2, 2), "down": (f, d // 2, 1)}
+
+    def scales(L, K, Nh):
+        sh = (torch.rand((L,), generator=g, device=dev) * 0.4 + 0.6) / (
+            2 * math.sqrt(K))
+        return sh, lambda planes, s, j: (planes + 0.5) * s[j]
+
+    cases, err = _w4_cases(
+        dev, g, shapes,
+        lambda x, wp, s, j: MW.w4_affine_matmul_stacked(x, wp, s, j,
+                                                        plane_major=True),
+        lambda x, wp, s, j: MW.w4_affine_matmul_stacked_plain(
+            x, wp, s, j).reshape(x.shape[0], -1),
+        scales, lambda M, Nh: 4 + M * 4)             # sh and the row sums
+    return {"name": "w4_affine_matmul_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:747",
+            "max_abs_err": err, **_layer_total(cases),
+            "library": "torch.matmul(x, bf16 dequantized weights)",
+            "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "cases": cases}
+
+
+def check_w4_head(dev, g, cfg):
+    """Row 8, the int4 lm_head, at M=8 and M=1 (the kernel of row 13 on an
+    L = 1 view)."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    K, N = cfg.hidden_size, cfg.vocab_size
+    wp = torch.randint(0, 256, (K, N // 2), dtype=torch.uint8, generator=g,
+                       device=dev)
+    scale = (torch.rand((N,), generator=g, device=dev) + 0.5) / (
+        7 * math.sqrt(K))
+    w_deq = (MW.unpack_w4_planar(wp).float() * scale).to(torch.bfloat16)
+    cases, err = _head_cases(dev, g, K, N,
+                             lambda x: MW.w4_matmul(x, wp, scale),
+                             lambda x: MW.w4_matmul_plain(x, wp, scale),
+                             w_deq, K * N // 2)
+    del w_deq
+    return {"name": "w4_matmul", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:143",
+            "max_abs_err": err, **_head_entry(cases),
+            "library": "torch.matmul(x, bf16 dequantized weights)",
+            "unit": f"int4 lm_head (8, {K}) x ({K}, {N})",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1)",
             "cases": cases}
 
 
@@ -598,11 +751,11 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
-def _compare_runs(gpu, cpu, uids, new_tokens):
+def _compare_runs(gpu, cpu, uids, new_tokens, lmax, lrms):
     """Logits of each request's steps on the GPU and the CPU, up to and
     including the first step where the two pick different tokens (until
-    then both saw the same tokens).  Returns (steps compared, worst
-    max error over the std of the logits)."""
+    then both saw the same tokens), within lmax (max) and lrms (rms) std of
+    the logits.  Returns (steps compared, worst max error over the std)."""
     worst, compared = 0.0, 0
     for uid in uids:
         a, b = gpu[uid], cpu[uid]
@@ -612,8 +765,8 @@ def _compare_runs(gpu, cpu, uids, new_tokens):
             sd = float(np.std(lb))
             e = np.abs(la - lb)
             ensure(np.isfinite(la).all())
-            ensure(e.max() <= LOGIT_MAX * sd, (uid, e.max() / sd))
-            ensure(np.sqrt(np.mean(e ** 2)) <= LOGIT_RMS * sd, uid)
+            ensure(e.max() <= lmax * sd, (uid, e.max() / sd))
+            ensure(np.sqrt(np.mean(e ** 2)) <= lrms * sd, uid)
             worst = max(worst, float(e.max() / sd))
             compared += 1
             if x != y:
@@ -621,13 +774,37 @@ def _compare_runs(gpu, cpu, uids, new_tokens):
     return compared, worst
 
 
+def tiny_e8p_quant(cfg, seed=0):
+    """Random E8P quantizer entries for every projection of the tiny model:
+    codes (N, K/8) and a per-tensor scale."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim), "v": (d, cfg.kv_dim),
+              "o": (cfg.q_dim, d), "up": (d, f), "gate": (d, f),
+              "down": (f, d)}
+    return {f"layers.{i}.{n}": {
+        "codes": rng.integers(0, 1 << 16, (nout, k // 8)).astype(np.int32),
+        "scale": np.float32(rng.uniform(0.6, 1.0) / np.sqrt(k))}
+        for i in range(cfg.num_layers) for n, (k, nout) in shapes.items()}
+
+
+# the tiny configurations: (quantizers, lm_head bits, ServingConfig flags,
+# logit tolerance in std of the logits); W4A4's is the reference's own
+# jit-vs-eager spread (tests/test_torch_paged.py), the weight-only ones
+# twice theirs (tests/test_torch_weight_only.py)
+SMALL = {"W4A4": ("w4", 8, dict(a4=True), (LOGIT_MAX, LOGIT_RMS)),
+         "W4A16": ("w4", 4, dict(a4=False), (0.06, 0.02)),
+         "E8P": ("e8p", 8, dict(a4=False), (0.06, 0.02))}
+
+
 def small_check(dev):
     """Three requests through two slots of each engine, on the GPU (kernels)
-    and on the CPU (plain versions), in configuration (A): the paged engine
-    (two requests share a full page) and the contiguous ServingEngine.
-    Until the first step where the two pick different tokens both saw the
-    same tokens, so their logits must agree within the end-to-end
-    tolerance."""
+    and on the CPU (plain versions), in three configurations: W4A4 (A),
+    W4A16 with an int4 head (C) and E8P (D), all INT4 KV with the online
+    Hadamards: the paged engine (two requests share a full page) and the
+    contiguous ServingEngine.  Until the first step where the two pick
+    different tokens both saw the same tokens, so their logits must agree
+    within the configuration's tolerance."""
     from rsq_tpu_torch.models.config import ModelConfig
     from rsq_tpu_torch.serving import model as S
     from rsq_tpu_torch.serving import params as SP
@@ -635,39 +812,45 @@ def small_check(dev):
     from rsq_tpu_torch.serving.paged import PagedServingEngine
     cfg = ModelConfig.tiny()
     dense, quant = tiny_dense_model(cfg, seed=1)
-    sp = S.quantize_lm_head(S.stack_layer_params(SP.fuse_for_decode(
-        SP.to_serving_params(dense, quant, cfg, device="cpu"))))
-    sc = S.ServingConfig(model=cfg, max_seq=256, attn_int8_qk=True)
+    quants = {"w4": quant, "e8p": tiny_e8p_quant(cfg, seed=3)}
     rng = np.random.default_rng(2)
     shared = rng.integers(0, cfg.vocab_size, 128)
     prompts = [rng.integers(0, cfg.vocab_size, 40),
                np.concatenate([shared, rng.integers(0, cfg.vocab_size, 9)]),
                np.concatenate([shared, rng.integers(0, cfg.vocab_size, 30)])]
     out = {}
-    for kind in ("paged", "contiguous"):
-        runs = []
-        for d in ("cuda", "cpu"):
+    for conf, (qname, bits, flags, (lmax, lrms)) in SMALL.items():
+        sp = S.quantize_lm_head(S.stack_layer_params(SP.fuse_for_decode(
+            SP.to_serving_params(dense, quants[qname], cfg, device="cpu"))),
+            bits=bits)
+        sc = S.ServingConfig(model=cfg, max_seq=256, attn_int8_qk=True,
+                             **flags)
+        for kind in ("paged", "contiguous"):
+            runs = []
+            for d in ("cuda", "cpu"):
+                if kind == "paged":
+                    eng = PagedServingEngine(tree_to(sp, d), sc, num_slots=2,
+                                             page_size=128,
+                                             record_logits=True, device=d)
+                else:
+                    eng = ServingEngine(tree_to(sp, d), sc, num_slots=2,
+                                        record_logits=True, device=d)
+                for p in prompts:
+                    eng.add_request(p, max_new_tokens=4)
+                runs.append({r.uid: r for r in eng.run_until_done(max_steps=50)})
+            compared, worst = _compare_runs(*runs, (1, 2, 3), 4, lmax, lrms)
             if kind == "paged":
-                eng = PagedServingEngine(tree_to(sp, d), sc, num_slots=2,
-                                         page_size=128, record_logits=True,
-                                         device=d)
-            else:
-                eng = ServingEngine(tree_to(sp, d), sc, num_slots=2,
-                                    record_logits=True, device=d)
-            for p in prompts:
-                eng.add_request(p, max_new_tokens=4)
-            runs.append({r.uid: r for r in eng.run_until_done(max_steps=50)})
-        compared, worst = _compare_runs(*runs, (1, 2, 3), 4)
-        if kind == "paged":
-            ensure(runs[0][3].reused_pages == 1)
-            ensure(all(runs[0][u].reused_pages == runs[1][u].reused_pages
-                       for u in (1, 2, 3)))
-        out[kind] = {"logit_steps_compared": compared,
-                     "max_err_over_std": worst}
+                ensure(runs[0][3].reused_pages == 1)
+                ensure(all(runs[0][u].reused_pages == runs[1][u].reused_pages
+                           for u in (1, 2, 3)))
+            out[f"{conf}_{kind}"] = {"logit_steps_compared": compared,
+                                     "max_err_over_std": worst,
+                                     "tolerance_over_std": lmax}
     return {"small": {"config": "tiny (2 layers, hidden 64, heads 4/2, "
-                                "intermediate 112), W4A4 INT4-KV; paged at "
-                                "page 128, contiguous at max_seq 256",
-                      **out, "tolerance_over_std": LOGIT_MAX}}
+                                "intermediate 112), INT4-KV; paged at page "
+                                "128, contiguous at max_seq 256; W4A4 and "
+                                "E8P with an int8 lm_head, W4A16 int4",
+                      **out}}
 
 
 # ---------------------------------------------------------------------------
@@ -681,6 +864,10 @@ CONTIG_KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
                   "int4_decode_attention_self_append")
 BF16_KERNELS = ("bf16_decode_attention_stacked", "kv_append_stacked_bf16",
                 "w16_matmul_stacked")
+W4_KERNELS = ("w4_matmul_paired_stacked", "w4_matmul", "decode_prep",
+              "int4_paged_decode_attention_self_append")
+E8P_KERNELS = ("w4_affine_matmul_stacked", "w8_matmul", "decode_prep",
+               "int4_decode_attention_self_append")
 
 
 def serve_prompts(cfg):
@@ -815,6 +1002,93 @@ def serve_contiguous(dev, cfg, params, prompts, profile: bool):
         **rec}}, launches
 
 
+def serve_w4(dev, cfg, params, prompts, profile: bool):
+    """Configuration (C), weight-only W4: PagedServingEngine on the W4A4
+    phases' plane-major weights served with bf16 activations (a4=False)
+    and an int4 lm_head, INT4-KV, page 512, max_seq 1024."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    sc = S.ServingConfig(model=cfg, a4=False, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    eng = PagedServingEngine(params, sc, num_slots=BATCH, page_size=512,
+                             device=dev)
+    rec, launches, done = drive(eng, prompts, cfg, W4_KERNELS)
+    reused = sorted(r.reused_pages for r in done)
+    ensure(reused[-1] == 1, f"prefix cache not hit: {reused}")
+    if profile:
+        from rsq_tpu_torch.serving.paged import decode_step_paged_fast
+        ptab = torch.as_tensor(eng.page_tables, device=dev)
+        lengths = torch.full((BATCH,), 512, dtype=torch.int32, device=dev)
+        toks = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+        profile_decode("serve_w4", lambda: decode_step_paged_fast(
+            params, eng.pool, ptab, lengths, toks, sc))
+    return {"serve_w4": {
+        "model": "llama3_8b widths, 32 layers, the W4A4 phases' random "
+                 "weights served weight-only (seed 0)",
+        "page": 512, "max_seq": 1024, "attn_int8_qk": True,
+        "int4_lm_head": True, "prefix_pages_reused": reused, **rec}}, launches
+
+
+def e8p_serving_params(cfg, seed: int, device):
+    """Stacked E8P serving params made on the card from seeded random codes
+    (uniform over the 2^16 codebook) and per-layer scales, through the
+    port's own pack_linear_e8p -> fuse_for_decode -> stack_layer_params:
+    all seven projections affine int4 ('wpm' + 'sh', unfused), no norms, a
+    bf16 embedding with lm_head = embed.T quantized to int8."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving import params as SP
+    dev = device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim), "v": (d, cfg.kv_dim),
+              "o": (cfg.q_dim, d), "up": (d, f), "gate": (d, f),
+              "down": (f, d)}
+    layers = []
+    for _ in range(cfg.num_layers):
+        lp = {"input_norm": None, "post_norm": None}
+        for name, (k, n) in shapes.items():
+            codes = torch.randint(0, 1 << 16, (n, k // 8), dtype=torch.int32,
+                                  generator=g, device=dev)
+            scale = (torch.rand((), generator=g, device=dev) * 0.4 + 0.6) / (
+                1.1 * math.sqrt(k))
+            lp[name] = SP.pack_linear_e8p({"b": None},
+                                          {"codes": codes, "scale": scale},
+                                          dev)
+        layers.append(lp)
+    emb = (torch.randn((v, d), generator=g, device=dev) * 0.01).to(torch.bfloat16)
+    params = SP.fuse_for_decode({"embed": emb, "final_norm": None,
+                                 "lm_head": emb.T.contiguous(),
+                                 "layers": layers})
+    del layers
+    return S.quantize_lm_head(S.stack_layer_params(params))
+
+
+def serve_e8p(dev, cfg, prompts, profile: bool):
+    """Configuration (D), E8P 2-bit weights served as affine int4:
+    ServingEngine, INT4 slot cache, int8 lm_head, max_seq 1024."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.engine import ServingEngine
+    t0 = time.perf_counter()
+    params = e8p_serving_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve_e8p: params built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ls = params["layers_stacked"]
+    ensure(all(set(ls[n]) == {"wpm", "sh", "b"} for n in
+               ("q", "k", "v", "o", "up", "gate", "down")), "E8P layout")
+    sc = S.ServingConfig(model=cfg, a4=False, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    eng = ServingEngine(params, sc, num_slots=BATCH, device=dev)
+    rec, launches, _ = drive(eng, prompts, cfg, E8P_KERNELS)
+    if profile:
+        profile_contiguous("serve_e8p", eng, dev)
+    return {"serve_e8p": {
+        "model": "llama3_8b widths, 32 layers, random E8P codes (seed 0) "
+                 "re-encoded to affine int4",
+        "max_seq": 1024, "attn_int8_qk": True, "int8_lm_head": True,
+        **rec}}, launches
+
+
 def serve_bf16(dev, cfg, prompts, profile: bool):
     """Configuration (B), the bf16 baseline: ServingEngine on dense bf16
     weights (random_dense_params, about 15 GB), bf16 cache, no Hadamards,
@@ -923,7 +1197,10 @@ def main(argv):
                lambda: check_contiguous_attention(dev, g, cfg),
                lambda: check_bf16_attention(dev, g, cfg),
                lambda: check_bf16_append(dev, g, cfg),
-               lambda: check_w16(dev, g, cfg)):
+               lambda: check_w16(dev, g, cfg),
+               lambda: check_w4(dev, g, cfg),
+               lambda: check_w4_affine(dev, g, cfg),
+               lambda: check_w4_head(dev, g, cfg)):
         t0 = time.perf_counter()
         kernels.append(fn())
         torch.cuda.empty_cache()
@@ -934,37 +1211,44 @@ def main(argv):
     small = small_check(dev)
     log(json.dumps(small))
 
-    # phase 5: serve -- each path's launch counts start at 0 just before it
+    # phase 5: serve -- each path's launch counts start at 0 just before it;
+    # one set of weights is live at a time (the W4 phases share the layers)
     prompts = serve_prompts(cfg)
     t0 = time.perf_counter()
-    params = S.quantize_lm_head(random_serving_params(cfg, seed=0,
-                                                      device=dev))
+    raw = random_serving_params(cfg, seed=0, device=dev)
+    params = S.quantize_lm_head(raw)
     torch.cuda.synchronize()
     log(f"serve: W4A4 params built in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     phases = []
-    for name, run in (
-            ("serve", lambda: serve_paged(dev, cfg, params, prompts,
-                                          profile)),
-            ("serve_contiguous", lambda: serve_contiguous(
-                dev, cfg, params, prompts, profile))):
+
+    def run_phase(name, run):
         t0 = time.perf_counter()
         phases.append(run())
         phases[-1][0][name]["card"] = smi
         log(json.dumps(phases[-1][0]))
         log(f"{name}: {time.perf_counter() - t0:.1f} s")
+
+    run_phase("serve", lambda: serve_paged(dev, cfg, params, prompts, profile))
+    run_phase("serve_contiguous", lambda: serve_contiguous(
+        dev, cfg, params, prompts, profile))
+    del params
+    params = S.quantize_lm_head(raw, bits=4)
+    del raw
+    run_phase("serve_w4", lambda: serve_w4(dev, cfg, params, prompts, profile))
     del params
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    phases.append(serve_bf16(dev, cfg, prompts, profile))
-    phases[-1][0]["serve_bf16"]["card"] = smi
-    log(json.dumps(phases[-1][0]))
-    log(f"serve_bf16: {time.perf_counter() - t0:.1f} s")
+    run_phase("serve_e8p", lambda: serve_e8p(dev, cfg, prompts, profile))
+    torch.cuda.empty_cache()
+    run_phase("serve_bf16", lambda: serve_bf16(dev, cfg, prompts, profile))
     step = {name: rec[name]["decode_ms_per_step_median"]
             for rec, _ in phases for name in rec}
     log(json.dumps({"record": {
         "bf16_over_w4a4_contiguous_decode_ms":
             step["serve_bf16"] / step["serve_contiguous"],
+        "w4_over_w4a4_paged_decode_ms": step["serve_w4"] / step["serve"],
+        "e8p_over_w4a4_contiguous_decode_ms":
+            step["serve_e8p"] / step["serve_contiguous"],
         "smoke_s_after_device_check": time.perf_counter() - t_start}}))
 
     for k in kernels:

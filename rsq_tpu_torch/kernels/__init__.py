@@ -13,7 +13,8 @@ KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
            "int4_paged_decode_attention_self_append",
            "int4_decode_attention_self_append",
            "bf16_decode_attention_stacked", "kv_append_stacked_bf16",
-           "w16_matmul_stacked")
+           "w16_matmul_stacked", "w4_matmul_paired_stacked",
+           "w4_affine_matmul_stacked", "w4_matmul")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -33,6 +33,7 @@ SOURCES = {
     "contiguous_attention": "contiguous_attention.cu",
     "bf16_attention": "bf16_attention.cu",
     "w16_matmul": "w16_matmul.cu",
+    "w4_matmul": "w4_matmul.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

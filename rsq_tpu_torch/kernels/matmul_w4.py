@@ -7,6 +7,8 @@ where byte (k, g*P + j) holds outputs (k, g*2P + j) [low nibble] and
 
 Kernels, each with its plain PyTorch version beside it:
 - w4a4_matmul_paired_stacked: csrc/w4a4_matmul.cu
+- w4_matmul_paired_stacked, w4_affine_matmul_stacked and w4_matmul (the
+  int4 lm_head): csrc/w4_matmul.cu, one kernel with two epilogues
 - w16_matmul_stacked: csrc/w16_matmul.cu
 - w8_matmul: csrc/w8_matmul.cu
 """
@@ -89,6 +91,17 @@ def token_scales(x: torch.Tensor, clip_ratio: float = 1.0) -> torch.Tensor:
     return torch.where(absmax == 0, 1.0, div_const(absmax * clip_ratio, 7.0))
 
 
+def _split_k(blocks: int, K: int):
+    """Split K (in 64-value steps) until ~4 blocks per SM of the 132 are in
+    flight, for a launch of `blocks` output blocks: (nsplit, kchunk), kchunk
+    a multiple of 64 and nsplit = ceil(K / kchunk).  The kernels sum the
+    slices in a fixed order, so runs repeat bit for bit."""
+    nsplit = max(1, min(-(-528 // blocks), -(-K // 64)))
+    kchunk = -(-K // nsplit)
+    kchunk = -(-kchunk // 64) * 64
+    return -(-K // kchunk), kchunk
+
+
 # ---------------------------------------------------------------------------
 # W4A4 against stacked plane-major weights
 # ---------------------------------------------------------------------------
@@ -115,11 +128,7 @@ def _w4a4_launch(x, wp_all, scale2, layer, xs):
     out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
     acc = torch.empty((M, 2, Nh), dtype=torch.int32, device=x.device)
     # split K so the small-N decode shapes still launch ~4 blocks per SM
-    # (kchunk is a multiple of the kernel's 64-value x stage)
-    blocks = -(-Nh // 512) * -(-M // 8)
-    nsplit = max(1, min(-(-528 // blocks), -(-K // 64)))
-    kchunk = -(-K // nsplit)
-    kchunk = -(-kchunk // 64) * 64
+    _, kchunk = _split_k(-(-Nh // 512) * -(-M // 8), K)
     wl = wp_all[layer]
     rc = fn(ptr(x), ptr(xs), ptr(wl), ptr(scale2), ptr(acc), ptr(out),
             M, K, Nh, kchunk, stream(x))
@@ -156,6 +165,143 @@ def w4a4_matmul_paired_stacked(x, wp_all, scale2, layer: int,
 
 
 # ---------------------------------------------------------------------------
+# Weight-only W4 (bf16 activations) against stacked packed weights
+# ---------------------------------------------------------------------------
+
+def _w4_acc(x, wl):
+    """f32 sums x @ q for both nibble planes of packed weights wl (K, Nh):
+    (M, 2, Nh).  bf16 x int4 products are exact in f32."""
+    w = wl.to(torch.int32)
+    xf = x.float()
+    return torch.stack([xf @ ((w << 28) >> 28).float(),
+                        xf @ ((w << 24) >> 28).float()], dim=1)
+
+
+def _w4_check(x, wp_all, layer):
+    require(x.dim() == 2 and wp_all.dim() == 3, "x (M, K), wp_all (L, K, Nh)")
+    L, K, Nh = wp_all.shape
+    require(x.shape[1] == K, f"K mismatch {x.shape[1]} vs {K}")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(wp_all.dtype == torch.uint8, "wp_all must be uint8")
+    return Nh
+
+
+def _w4_launch(x, wl, scale, xsum):
+    """Launch csrc/w4_matmul.cu on layer weights wl (K, Nh), a view read in
+    place.  scale: paired (2, Nh) f32 (xsum None), or the layer's 0-d sh
+    (affine, with the (M,) f32 row sums xsum).  Returns (M, 2, Nh) bf16."""
+    M, K = x.shape
+    Nh = wl.shape[1]
+    require(x.dtype == torch.bfloat16, f"kernel needs bf16 x, got {x.dtype}")
+    require(K % 8 == 0, "kernel needs K % 8 == 0")
+    require(wl.is_contiguous() and scale.is_contiguous(), "contiguous weights")
+    x = x.contiguous()
+    require(x.data_ptr() % 16 == 0, "kernel needs a 16-byte aligned x")
+    # whole 16-byte weight loads where rows allow them, else byte loads
+    aligned = Nh % 16 == 0 and wl.data_ptr() % 16 == 0
+    out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
+    # the slices of a K split are summed in order by a second pass
+    nsplit, kchunk = _split_k(
+        -(-Nh // 128) if M <= 16 else -(-Nh // 64) * -(-M // 64), K)
+    part = (torch.empty((nsplit, M, 2, Nh), dtype=torch.float32,
+                        device=x.device) if nsplit > 1 else out)
+    fn = cuda_build.function(
+        "w4_matmul", "w4_matmul_paired_stacked_launch",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = fn(ptr(x), ptr(wl), ptr(scale),
+            None if xsum is None else ptr(xsum), ptr(out), ptr(part),
+            M, K, Nh, kchunk, int(xsum is not None), int(aligned), stream(x))
+    cuda_build.check(rc, "w4_matmul")
+    return out
+
+
+def w4_matmul_paired_stacked_plain(x, wp_all, scale2, layer):
+    """Plain PyTorch version: f32 sums, the paired-scale epilogue, one
+    rounding to x's dtype."""
+    return (_w4_acc(x, wp_all[layer]) * scale2).to(x.dtype)
+
+
+def w4_matmul_paired_stacked(x, wp_all, scale2, layer: int):
+    """Weight-only W4 matmul against layer `layer` of stacked packed weights
+    wp_all (L, K, Nh) uint8, read in place (no copy of the layer).  x: (M, K)
+    bf16; scale2: (2, Nh) f32, this layer's paired per-column scales.
+    Returns the plane-paired output (M, 2, Nh) in x's dtype.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    Nh = _w4_check(x, wp_all, layer)
+    require(scale2.shape == (2, Nh) and scale2.dtype == torch.float32,
+            f"scale2 must be (2, {Nh}) f32")
+    if not on_cuda((x, wp_all, scale2)):
+        return w4_matmul_paired_stacked_plain(x, wp_all, scale2, layer)
+    out = _w4_launch(x, wp_all[layer], scale2.contiguous(), None)
+    LAUNCHES["w4_matmul_paired_stacked"] += 1
+    return out
+
+
+def row_sums(x):
+    """The affine kernel's rank-1 operand: f32 row sums of x, (M,)."""
+    return torch.sum(x, dim=1, dtype=torch.float32)
+
+
+# The affine format's offset: E8P re-encodes to v = (q + 0.5) * sh
+# (quantize/ldlq._affine_int4_table); csrc/w4_matmul.cu's kZero.
+AFFINE_ZERO = 0.5
+
+
+def w4_affine_matmul_stacked_plain(x, wp_all, sh_all, layer, xsum=None):
+    """Plain PyTorch version, plane-paired (M, 2, Nh): f32 sums, then
+    (acc + 0.5 * xsum) * sh in the reference's order, one rounding."""
+    xsum = row_sums(x) if xsum is None else xsum
+    acc = _w4_acc(x, wp_all[layer])
+    return ((acc + AFFINE_ZERO * xsum[:, None, None])
+            * sh_all[layer]).to(x.dtype)
+
+
+def w4_affine_matmul_stacked(x, wp_all, sh_all, layer: int,
+                             plane_major: bool = False):
+    """y = x @ ((unpack(W) + 0.5) * sh_all[layer]) against layer `layer` of
+    stacked packed weights (L, K, Nh) with per-layer scalar scales sh_all
+    (L,) f32: the E8P serving route (weights re-encoded losslessly to affine
+    int4).  The constant offset folds into a rank-1 term: y = (x @ q + 0.5
+    * sum_k x) * sh, the row sums computed here.  The kernel reads sh from
+    device memory.  plane_major: byte j holds natural outputs (j, j + Nh),
+    so the un-pairing is a reshape; else the adjacent layout's interleave.
+    Returns (M, 2 * Nh) in x's dtype."""
+    Nh = _w4_check(x, wp_all, layer)
+    require(sh_all.shape == (wp_all.shape[0],) and sh_all.dtype == torch.float32,
+            "sh_all must be (L,) f32")
+    xsum = row_sums(x)
+    if not on_cuda((x, wp_all, sh_all)):
+        y3 = w4_affine_matmul_stacked_plain(x, wp_all, sh_all, layer, xsum)
+    else:
+        y3 = _w4_launch(x, wp_all[layer], sh_all[layer], xsum)
+        LAUNCHES["w4_affine_matmul_stacked"] += 1
+    return y3.reshape(y3.shape[0], 2 * Nh) if plane_major else unpair_outputs(y3)
+
+
+def w4_matmul_plain(x, w_packed, scale):
+    """Plain PyTorch version of w4_matmul."""
+    return unpair_outputs(w4_matmul_paired_stacked_plain(
+        x, w_packed[None], pair_scales(scale), 0))
+
+
+def w4_matmul(x, w_packed, scale):
+    """y = x @ dequant(W) for adjacent-planar packed weights w_packed (K,
+    N/2) uint8 with per-column f32 scales (N,): the int4 lm_head.  Runs the
+    weight-only kernel on an L = 1 view with the paired scales and un-pairs
+    its output; any even N (no padding of the weights).  Returns (M, N) in
+    x's dtype."""
+    require(w_packed.dim() == 2, "w_packed (K, N/2)")
+    Nh = _w4_check(x, w_packed[None], 0)
+    require(scale.shape == (2 * Nh,) and scale.dtype == torch.float32,
+            f"scale must be ({2 * Nh},) f32")
+    if not on_cuda((x, w_packed, scale)):
+        return w4_matmul_plain(x, w_packed, scale)
+    y3 = _w4_launch(x, w_packed, pair_scales(scale).contiguous(), None)
+    LAUNCHES["w4_matmul"] += 1
+    return unpair_outputs(y3)
+
+
+# ---------------------------------------------------------------------------
 # Dense 16-bit weights, stacked
 # ---------------------------------------------------------------------------
 
@@ -186,13 +332,8 @@ def w16_matmul_stacked(x, w_all, layer: int, out_dtype=None):
     require(w_all.is_contiguous(), "w_all must be contiguous")
     x = x.contiguous()
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    # split K (in 64-value steps) until ~4 blocks per SM are in flight;
-    # the slices are summed in order by a second pass (deterministic)
-    blocks = -(-N // 128) * (1 if M <= 16 else -(-M // 64))
-    nsplit = max(1, min(-(-528 // blocks), -(-K // 64)))
-    kchunk = -(-K // nsplit)
-    kchunk = -(-kchunk // 64) * 64
-    nsplit = -(-K // kchunk)
+    # the slices of a K split are summed in order by a second pass
+    nsplit, kchunk = _split_k(-(-N // 128) * (1 if M <= 16 else -(-M // 64)), K)
     part = (torch.empty((nsplit, M, N), dtype=torch.float32, device=x.device)
             if nsplit > 1 else y)
     fn = cuda_build.function(

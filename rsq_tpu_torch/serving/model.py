@@ -20,15 +20,20 @@ import torch
 from rsq_tpu_torch import resolve_device
 from rsq_tpu_torch.core.hadamard import (hadamard_transform_last,
                                          head_mixing_hadamard)
-from rsq_tpu_torch.core.numerics import div_const
+from rsq_tpu_torch.core.numerics import div, div_const
 from rsq_tpu_torch.kernels import kv_cache as KVK
 from rsq_tpu_torch.kernels.hadamard_mxu import hadamard_transform
-from rsq_tpu_torch.kernels.matmul_w4 import (pair_scales, unpair_outputs,
+from rsq_tpu_torch.kernels.matmul_w4 import (pack_w4_planar, pair_scales,
+                                             unpair_outputs,
+                                             w4_affine_matmul_stacked,
+                                             w4_matmul,
+                                             w4_matmul_paired_stacked,
                                              w4a4_matmul_paired_stacked,
                                              w8_matmul, w8_quantize,
                                              w16_matmul_stacked)
 from rsq_tpu_torch.models import llama as M
 from rsq_tpu_torch.models.config import ModelConfig
+from rsq_tpu_torch.quantize.ldlq import e8p_dequantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,28 +55,41 @@ class ServingConfig:
 
 
 def lm_head_logits(params, x):
-    """(..., d) -> (..., V): the int8 kernel when the head is quantized."""
+    """(..., d) -> (..., V): the int8 or int4 kernel when the head is
+    quantized."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if "lm_head_q" in params:
         y = w8_matmul(x2.to(torch.bfloat16).contiguous(), params["lm_head_q"],
                       params["lm_head_scale"])
     elif "lm_head_wp" in params:
-        raise NotImplementedError("int4 lm_head is not ported yet")
+        y = w4_matmul(x2.to(torch.bfloat16), params["lm_head_wp"],
+                      params["lm_head_scale4"])
     else:
         y = x2 @ params["lm_head"].to(x2.dtype)
     return y.reshape(*lead, y.shape[-1])
 
 
 def quantize_lm_head(params, bits: int = 8):
-    """Per-channel symmetric int8 lm_head ("lm_head" -> "lm_head_q",
-    "lm_head_scale").  The int4 head is not ported yet."""
-    if bits != 8:
-        raise NotImplementedError(f"lm_head bits={bits} is not ported yet")
+    """Per-channel symmetric int8 ("lm_head_q", "lm_head_scale") or int4
+    ("lm_head_wp" adjacent-planar, "lm_head_scale4") lm_head in place of
+    "lm_head".  The reference runs this outside jit, so its divisions are
+    IEEE divisions (core.numerics.div)."""
     out = dict(params)
-    w8, scale = w8_quantize(out.pop("lm_head"))
-    out["lm_head_q"] = w8
-    out["lm_head_scale"] = scale
+    W = out.pop("lm_head")
+    if bits == 8:
+        w8, scale = w8_quantize(W)
+        out["lm_head_q"] = w8
+        out["lm_head_scale"] = scale
+    elif bits == 4:
+        Wf = W.float()
+        absmax = Wf.abs().amax(dim=0)
+        scale = torch.where(absmax == 0, 1.0, div(absmax, 7.0))
+        codes = torch.clamp(torch.round(Wf / scale[None, :]), -8, 7)
+        out["lm_head_wp"] = pack_w4_planar(codes.to(torch.int8))
+        out["lm_head_scale4"] = scale.float()
+    else:
+        raise ValueError(f"lm_head bits must be 8 or 4, got {bits}")
     return out
 
 
@@ -99,25 +117,20 @@ def _sl(p, i):
     return None if p is None else p[i]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 2)")
-
-
-_W4_ONLY = "weight-only W4 (w4_matmul_paired_stacked, kernel table row 13)"
-_AFFINE = "affine W4 / E8P (w4_affine_matmul_stacked, kernel table row 14)"
-
-
 def _linear_fast(x2, p, i: int, sc: ServingConfig):
     """Linear against stacked params p at layer i, dispatched on the layout
     in the reference's order.  Fused entries ('wp2') return the list of
-    segment outputs; every other entry returns one output."""
+    segment outputs; every other entry returns one.  Plane-major entries
+    ('wp2'/'wpm') un-pair with a reshape; legacy adjacent 'wp' entries pay
+    pair_scales and an interleave."""
     x2 = x2.contiguous()
     if "wp2" in p:
-        if not sc.a4:
-            raise _not_ported(_W4_ONLY)
         scale2 = torch.cat([s[i] for s in p["scales2"]], dim=1)
-        y3 = w4a4_matmul_paired_stacked(x2, p["wp2"], scale2, i,
-                                        clip_ratio=sc.a_clip)
+        if sc.a4:
+            y3 = w4a4_matmul_paired_stacked(x2, p["wp2"], scale2, i,
+                                            clip_ratio=sc.a_clip)
+        else:
+            y3 = w4_matmul_paired_stacked(x2, p["wp2"], scale2, i)
         outs, off = [], 0
         for s, b in zip(p["scales2"], p["bs"]):
             nh = s.shape[-1]
@@ -129,22 +142,29 @@ def _linear_fast(x2, p, i: int, sc: ServingConfig):
         return outs
     if "wpm" in p:
         if "sh" in p:
-            raise _not_ported(_AFFINE)
-        if not sc.a4:
-            raise _not_ported(_W4_ONLY)
-        y3 = w4a4_matmul_paired_stacked(x2, p["wpm"], p["scale2"][i], i,
-                                        clip_ratio=sc.a_clip)
-        y = y3.reshape(y3.shape[0], -1)
+            y = w4_affine_matmul_stacked(x2, p["wpm"], p["sh"], i,
+                                         plane_major=True)
+        else:
+            if sc.a4:
+                y3 = w4a4_matmul_paired_stacked(x2, p["wpm"], p["scale2"][i],
+                                                i, clip_ratio=sc.a_clip)
+            else:
+                y3 = w4_matmul_paired_stacked(x2, p["wpm"], p["scale2"][i], i)
+            y = y3.reshape(y3.shape[0], -1)
     elif "sh" in p:
-        raise _not_ported(_AFFINE)
+        y = w4_affine_matmul_stacked(x2, p["wp"], p["sh"], i)
     elif "codes" in p:
-        raise _not_ported("the legacy E8P 'codes' layout (e8p_dequantize)")
+        # legacy E8P layout (before the affine re-encoding): dequantize the
+        # grid and multiply, a plain product as in the reference
+        w = e8p_dequantize(p["codes"][i], p["e8p_scale"][i])   # (out, in)
+        y = x2 @ w.T.to(x2.dtype)
     elif "wp" in p:
-        if not sc.a4:
-            raise _not_ported(_W4_ONLY)
-        y3 = w4a4_matmul_paired_stacked(x2, p["wp"],
-                                        pair_scales(p["scale"][i]), i,
-                                        clip_ratio=sc.a_clip)
+        scale2 = pair_scales(p["scale"][i])
+        if sc.a4:
+            y3 = w4a4_matmul_paired_stacked(x2, p["wp"], scale2, i,
+                                            clip_ratio=sc.a_clip)
+        else:
+            y3 = w4_matmul_paired_stacked(x2, p["wp"], scale2, i)
         y = unpair_outputs(y3)
     else:
         # dense 16-bit weights (the reference ignores a4 here too)

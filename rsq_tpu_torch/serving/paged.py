@@ -10,10 +10,11 @@ immutable while shared: appends only touch pages past the owner's prompt.
 Prefill is plain PyTorch around the linear and lm_head kernels; each
 decode step runs, per layer, the qkv linear(s) -> decode_prep -> paged
 attention with in-place append -> o -> up/gate -> down, then the lm_head.
-Params may be fused W4A4 (fuse_for_decode: qkv, upgate) or unfused (q, k,
-v, up, gate), W4A4 or dense bf16, as serving/model._linear_fast dispatches
-them.  Pages must hold a multiple of 128 tokens: smaller pages need the
-reference's separate append and read-only paged kernels, not ported yet.
+Params may be fused (fuse_for_decode: qkv, upgate) or unfused (q, k, v,
+up, gate): W4A4, weight-only W4 (a4=False), E8P re-encoded to affine int4,
+or dense bf16, as serving/model._linear_fast dispatches them.  Pages must
+hold a multiple of 128 tokens: smaller pages need the reference's separate
+append and read-only paged kernels, not ported yet.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ the bridge that carries the JAX package's serving pytree across.
 Serving linear params: {"wp": uint8 (K, N/2) planar, "scale": f32 (N,),
 "b": bf16 (N,) | None}; fuse_for_decode re-packs them plane-major
 ({"wp2", "scales2", "bs"} for fused q/k/v and up/gate, {"wpm", "scale2",
-"b"} for o and down).
+"b"} for o and down).  E8P (2-bit) linears are re-encoded losslessly to
+affine int4, {"wp", "sh": f32 (), "b"} with w = (q + 0.5) * sh; they are
+never fused and become {"wpm", "sh", "b"}.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from rsq_tpu_torch import resolve_device
 from rsq_tpu_torch.kernels.matmul_w4 import pack_w4_planar, unpack_w4_planar
 from rsq_tpu_torch.models.config import ModelConfig
+from rsq_tpu_torch.quantize.ldlq import e8p_codes_to_int4
 
 QUANT_NAMES = ("q", "k", "v", "o", "up", "gate", "down")
 
@@ -66,6 +69,25 @@ def pack_linear(p, scale_rows, device):
             "b": None if b is None else _tensor(b, device, torch.bfloat16)}
 
 
+def unpack_linear(sp):
+    """Serving params -> dense dequantized (K, N) f32 weights (test oracle)."""
+    return unpack_w4_planar(sp["wp"]).float() * sp["scale"][None, :]
+
+
+def pack_linear_e8p(p, qinfo, device):
+    """E8P serving params: codes (N, K/8) re-encoded losslessly to planar
+    int4 with a constant +0.5 offset, w = (q + 0.5) * sh with sh =
+    f32(scale) * 0.5 (ldlq.e8p_codes_to_int4), served by the affine-W4
+    kernel at 4 bits per weight.  The codes are decoded on `device`."""
+    dev = resolve_device(device)
+    q = e8p_codes_to_int4(_tensor(qinfo["codes"], dev))   # (N, K) int4 values
+    scale = _tensor(qinfo["scale"], dev, torch.float32).reshape(())
+    b = p.get("b")
+    return {"wp": pack_w4_planar(q.T.contiguous()),     # (K, N/2)
+            "sh": scale * 0.5,
+            "b": None if b is None else _tensor(b, dev, torch.bfloat16)}
+
+
 def plane_scales(scale: torch.Tensor) -> torch.Tensor:
     """(N,) natural per-output scales -> (2, N/2) plane-major."""
     return scale.reshape(2, scale.shape[-1] // 2)
@@ -93,16 +115,15 @@ def _fuse_packed(ps):
 
 def fuse_for_decode(params):
     """Fuse q/k/v and up/gate into single plane-major kernel calls and
-    convert o/down to plane-major ("wpm")."""
+    convert the other packed linears to plane-major ("wpm").  E8P affine
+    entries ("wp" + "sh", no "scale") never fuse: the paired kernel would
+    drop their +0.5 offset; they become {"wpm", "sh", "b"}."""
     out = dict(params)
     layers = []
     for lp in params["layers"]:
-        for e in lp.values():
-            if isinstance(e, dict) and "sh" in e:
-                raise NotImplementedError("E8P serving is not ported yet")
-
         def packed(n):
-            return n in lp and "wp" in lp[n] and "scale" in lp[n]
+            return (n in lp and "wp" in lp[n] and "scale" in lp[n]
+                    and "sh" not in lp[n])
 
         nlp = dict(lp)
         if all(packed(n) for n in ("q", "k", "v")):
@@ -115,7 +136,12 @@ def fuse_for_decode(params):
                 del nlp[n]
         for name in list(nlp):
             e = nlp[name]
-            if isinstance(e, dict) and "wp" in e and "scale" in e:
+            if not (isinstance(e, dict) and "wp" in e):
+                continue
+            if "sh" in e:
+                nlp[name] = {"wpm": repack_plane_major(e["wp"]),
+                             "sh": e["sh"], "b": e.get("b")}
+            elif "scale" in e:
                 nlp[name] = {"wpm": repack_plane_major(e["wp"]),
                              "scale2": plane_scales(e["scale"]),
                              "b": e.get("b")}
@@ -127,8 +153,9 @@ def fuse_for_decode(params):
 def to_serving_params(params, quantizers, cfg: ModelConfig,
                       dtype=torch.bfloat16, device="cuda"):
     """Fake-quant model pytree (numpy arrays or tensors) + quantizer info ->
-    packed serving pytree on `device`.  4-bit quantizer entries pack; layers
-    without one stay dense."""
+    packed serving pytree on `device`.  4-bit quantizer entries pack, E8P
+    entries (with "codes") re-encode to affine int4; layers without one
+    stay dense."""
     dev = resolve_device(device)
     out = {
         "embed": _tensor(params["embed"], dev, dtype),
@@ -142,8 +169,8 @@ def to_serving_params(params, quantizers, cfg: ModelConfig,
         for name in QUANT_NAMES:
             qinfo = quantizers.get(f"layers.{i}.{name}")
             if qinfo is not None and "codes" in qinfo:
-                raise NotImplementedError("E8P serving is not ported yet")
-            if qinfo is not None and qinfo["bits"] == 4:
+                slp[name] = pack_linear_e8p(lp[name], qinfo, dev)
+            elif qinfo is not None and qinfo["bits"] == 4:
                 slp[name] = pack_linear(lp[name], qinfo["scale"], dev)
             else:
                 slp[name] = {"w": _tensor(lp[name]["w"], dev, dtype),

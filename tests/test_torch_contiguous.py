@@ -274,10 +274,39 @@ def test_dense_params_and_caches_carry_across(model):
         assert_trees_equal(filled, TP.from_numpy_params(filled, device="cpu"))
 
 
+def _e8p_stacks(seed):
+    """Two layers of one E8P linear (K 64, N 32, with a bias), packed and
+    stacked by both packages: (legacy adjacent 'wp' + 'sh', plane-major
+    'wpm' + 'sh', legacy 'codes') as (JAX, torch) pairs."""
+    rng = np.random.default_rng(seed)
+    lins = [({"b": rng.standard_normal(32).astype(np.float32)},
+             {"codes": rng.integers(0, 1 << 16, (32, 8)).astype(np.int32),
+              "scale": np.float32(sc)}) for sc in (0.02, 0.03)]
+    out = []
+    for pk, stack, fuse in ((JP.pack_linear_e8p, JS.stack_layer_params,
+                             JP.fuse_for_decode),
+                            (lambda p, q: TP.pack_linear_e8p(p, q, "cpu"),
+                             TS.stack_layer_params, TP.fuse_for_decode)):
+        tree = {"layers": [{"e": pk(p, q)} for p, q in lins]}
+        out.append((stack(tree)["layers_stacked"]["e"],
+                    stack(fuse(tree))["layers_stacked"]["e"]))
+    codes = np.stack([q["codes"] for _, q in lins])
+    scale = np.stack([q["scale"] for _, q in lins])
+    legacy = ({"codes": jnp.asarray(codes), "e8p_scale": jnp.asarray(scale),
+               "b": None},
+              {"codes": torch.from_numpy(codes),
+               "e8p_scale": torch.from_numpy(scale), "b": None})
+    return (out[0][0], out[1][0]), (out[0][1], out[1][1]), legacy
+
+
 def test_linear_fast_dispatch(model):
-    """The legacy adjacent 'wp' layout (W4A4, paired scales, un-paired
-    output) is bit-equal to the reference; dense 'w' within one bf16
-    rounding; the branches whose kernels are not ported raise."""
+    """Every layout against the reference's _linear_fast.  W4A4 legacy
+    adjacent 'wp' (paired scales, un-paired output): bit-equal; dense 'w':
+    within one bf16 rounding.  Weight-only W4 (a4=False: fused 'wp2',
+    plane-major 'wpm', legacy 'wp'), E8P affine ('wp' and 'wpm' + 'sh') and
+    the legacy E8P 'codes': f32 sums in another order, then bf16 roundings
+    (the reference's biased dot adds its own): within 2^-7 of the largest
+    output + 1e-5."""
     cfg, jcfg, P, (params, quant) = model
     jsp = JS.stack_layer_params(JP.to_serving_params(params, quant, jcfg))
     tsp = TS.stack_layer_params(TP.to_serving_params(params, quant, cfg,
@@ -294,18 +323,24 @@ def test_linear_fast_dispatch(model):
     np.testing.assert_allclose(f32(TS._linear_fast(xt, tp, 1, tsc)),
                                f32(JS._linear_fast(xj, jp, 1, jsc)),
                                rtol=2 * BF16_EPS, atol=1e-6)
-    _, w4 = configs(cfg, jcfg, "C")
-    fused = P["A"][1]["layers_stacked"]
-    with pytest.raises(NotImplementedError, match="row 13"):
-        TS._linear_fast(xt, fused["qkv"], 0, w4)
-    with pytest.raises(NotImplementedError, match="row 13"):
-        TS._linear_fast(xt, fused["o"], 0, w4)
-    with pytest.raises(NotImplementedError, match="row 13"):
-        TS._linear_fast(xt, tsp["layers_stacked"]["q"], 0, w4)
-    with pytest.raises(NotImplementedError, match="row 14"):
-        TS._linear_fast(xt, {"wp": None, "sh": None}, 0, tsc)
-    with pytest.raises(NotImplementedError, match="E8P"):
-        TS._linear_fast(xt, {"codes": None, "e8p_scale": None}, 0, tsc)
+
+    def close(t, j):
+        t, j = f32(t), f32(j)
+        assert t.shape == j.shape
+        assert np.abs(t - j).max() <= 2.0 ** -7 * np.abs(j).max() + 1e-5
+
+    jw4, w4 = configs(cfg, jcfg, "C")                       # a4=False
+    jf, tf = P["A"][0]["layers_stacked"], P["A"][1]["layers_stacked"]
+    segs = TS._linear_fast(xt, tf["qkv"], 0, w4)
+    assert len(segs) == 3
+    for t, j in zip(segs, JS._linear_fast(xj, jf["qkv"], 0, jw4)):
+        close(t, j)
+    close(TS._linear_fast(xt, tf["o"], 0, w4),
+          JS._linear_fast(xj, jf["o"], 0, jw4))
+    close(TS._linear_fast(xt, tsp["layers_stacked"]["q"], 0, w4),
+          JS._linear_fast(xj, jsp["layers_stacked"]["q"], 0, jw4))
+    for jp, tp in _e8p_stacks(7):
+        close(TS._linear_fast(xt, tp, 1, w4), JS._linear_fast(xj, jp, 1, jw4))
 
 
 def test_scan_decode_env_raises(model, monkeypatch):

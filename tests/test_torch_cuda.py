@@ -216,3 +216,61 @@ def test_w16_matches_plain(dev, M, K, N):
     got = f32(TMW.w16_matmul_stacked(x.to(dev), w.to(dev), 1))
     np.testing.assert_allclose(got, want, rtol=2 * BF16_EPS,
                                atol=1e-5 * np.abs(want).max())
+
+
+def _w4_close(got, want):
+    """f32 sums in another order, one bf16 rounding each: within 2^-7 of
+    the largest output plus 1e-5."""
+    got, want = f32(got), f32(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 8, 130])
+@pytest.mark.parametrize("K,Nh", [(256, 160), (4096, 3072)])
+def test_w4_paired_stacked_matches_plain(dev, M, K, Nh):
+    """Row 13; (4096, 3072) is the fused Llama-3-8B qkv, split K at M <= 16;
+    Nh = 160 ends in a partial 128-column tile."""
+    rng = np.random.default_rng(M + K)
+    wp = torch.from_numpy(rng.integers(0, 256, (2, K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want = TMW.w4_matmul_paired_stacked(x, wp, s2, 1)
+    got = TMW.w4_matmul_paired_stacked(x.to(dev), wp.to(dev), s2.to(dev), 1)
+    _w4_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 130])
+@pytest.mark.parametrize("plane_major", [False, True])
+def test_w4_affine_stacked_matches_plain(dev, M, plane_major):
+    """Row 14: the per-layer sh read on the card, the rank-1 +0.5 term."""
+    rng = np.random.default_rng(M + 7 * plane_major)
+    L, K, Nh = 3, 512, 96
+    wp = torch.from_numpy(rng.integers(0, 256, (L, K, Nh), dtype=np.uint8))
+    sh = torch.from_numpy(rng.uniform(0.01, 0.05, L).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want = TMW.w4_affine_matmul_stacked(x, wp, sh, 2, plane_major=plane_major)
+    got = TMW.w4_affine_matmul_stacked(x.to(dev), wp.to(dev), sh.to(dev), 2,
+                                       plane_major=plane_major)
+    _w4_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8])     # prefill lm_head row, decode batch
+def test_w4_matmul_matches_plain(dev, M):
+    """Row 8, the int4 lm_head, at N = 1000 (Nh = 500: not a multiple of
+    the kernel's tiles, no padding)."""
+    rng = np.random.default_rng(M)
+    K, N = 256, 1000
+    wp = torch.from_numpy(rng.integers(0, 256, (K, N // 2), dtype=np.uint8))
+    sc = torch.from_numpy(rng.uniform(0.001, 0.01, N).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want = TMW.w4_matmul(x, wp, sc)
+    got = TMW.w4_matmul(x.to(dev), wp.to(dev), sc.to(dev))
+    _w4_close(got, want)

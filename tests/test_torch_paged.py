@@ -46,6 +46,26 @@ def model():
     return cfg, jcfg, jsp, torch_serving_params(cfg, params, quant)
 
 
+@pytest.fixture
+def reference_steps_copy_inputs(monkeypatch):
+    """Closes a race of the reference's paged engine on the CPU backend.
+    Its step hands the host `lengths` array to the asynchronously
+    dispatched decode step through jnp.asarray, which aliases a numpy
+    array whose data is 64-byte aligned instead of copying it, and then
+    increments that array in place before the step has run.  Whether the
+    step reads the old or the new lengths (rope positions, attention
+    length) depends on where numpy put the array and on timing, so two
+    identical runs can disagree (ROADMAP §3).  Here the step copies its
+    host inputs before the engine goes on; the computation is unchanged."""
+    step = JPG.decode_step_paged_fast
+
+    def copied(params, pool, page_tables, lengths, token_ids, sc):
+        return step(params, pool, *(jnp.array(np.array(a)) for a in
+                                    (page_tables, lengths, token_ids)), sc)
+
+    monkeypatch.setattr(JPG, "decode_step_paged_fast", copied)
+
+
 def configs(cfg, jcfg, int8_qk=False):
     kw = dict(a4=True, kv_int4=True, kv_hadamard=True, online_had=True,
               max_seq=MAX_SEQ, attn_int8_qk=int8_qk)
@@ -174,7 +194,7 @@ def test_decode_steps_match(model, prefilled, int8_qk):
         lengths = lengths + np.array([1, 1, 0], np.int32)
 
 
-def test_engine_matches_reference_engine(model):
+def test_engine_matches_reference_engine(model, reference_steps_copy_inputs):
     """Three requests (two sharing a full prompt page) through both engines:
     same token counts and prefix reuse.  Up to and including the first step
     where the two trajectories pick different tokens, both saw the same
