@@ -6,31 +6,41 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
   1. device  -- require CUDA; print the card's name and power limit.
   2. build   -- nvcc the CUDA sources of rsq_tpu_torch/csrc, in parallel.
-  3. kernels -- each of the eleven kernels against its plain PyTorch version
-                on the card at the Llama-3-8B serving shapes, with the
-                tolerance stated beside each check; kernel, plain and
+  3. kernels -- each of the seventeen kernels against its plain PyTorch
+                version on the card at the Llama-3-8B serving shapes, with
+                the tolerance stated beside each check; kernel, plain and
                 library-call times (CUDA events) and the least time the
                 card could take.
   4. small   -- tiny models served on the GPU (kernels) and on the CPU
-                (plain versions) by the paged and the contiguous engine, in
-                three configurations (W4A4, W4A16 with an int4 lm_head,
-                E8P): the logits must agree.
-  5. serve   -- five paths at full Llama-3-8B width and depth, 8 requests
-                of 100-700 prompt tokens (two sharing a 600-token prefix),
-                32 new tokens each; each path's kernel launch counts start
-                at 0 just before it and must rise:
+                (plain versions) by the paged engine at pages 128 and 16,
+                the contiguous engine, the per-layer prefill/decode_step
+                and the per-layer paged oracles at page 16, in three
+                configurations (W4A4, W4A16 with an int4 lm_head, E8P): the
+                logits must agree.
+  5. serve   -- ten paths at full Llama-3-8B width and depth (32 layers),
+                32 new tokens per request; each path's kernel launch counts
+                start at 0 just before it and must rise:
                 serve            PagedServingEngine, W4A4 INT4-KV, page 512
                 serve_contiguous ServingEngine, the same W4A4 weights (A)
+                serve_layers     prefill + decode_step on the same weights
+                                 unstacked, 8 prompts of 512 tokens (E)
+                scan             prefill_stacked + decode_step_stacked under
+                                 RSQ_SCAN_DECODE=1 on them, held against (E)
+                serve_page16     PagedServingEngine, W4A4, page 16 (F)
                 serve_w4         PagedServingEngine, the same weights served
                                  weight-only (a4=False), int4 lm_head (C)
+                serve_layers_w4  (E) on (C)'s weights and head
                 serve_e8p        ServingEngine, E8P weights as affine int4,
                                  INT4-KV (D)
+                serve_layers_e8p (E) on (D)'s weights
                 serve_bf16       ServingEngine, dense bf16 weights and cache
                                  (the bf16 baseline, B)
+                The paged and contiguous engines serve 8 requests of
+                100-700 prompt tokens (two sharing a 600-token prefix).
                 One set of weights is live at a time.
 Then one JSON line per phase result, the kernels line, the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  --profile adds, after
-each serve phase, a torch.profiler table of one decode step and a
+each serve phase but scan, a torch.profiler table of one decode step and a
 "profile" line: the step's wall and queueing time, the card's busy time,
 and the step's stream syncs, copies and launches.
 """
@@ -39,10 +49,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -153,13 +165,27 @@ def nvidia_smi() -> str:
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_w4a4(dev, g):
-    from rsq_tpu_torch.kernels import matmul_w4 as MW
-    cfg_shapes = {"qkv": (4096, 3072), "o": (4096, 2048),
-                  "upgate": (4096, 14336), "down": (14336, 2048)}
+W4A4_SHAPES = {"qkv": (4096, 3072), "o": (4096, 2048),
+               "upgate": (4096, 14336), "down": (14336, 2048)}
+# M of the matmul checks: decode (batch 8) and the engines' largest prefill
+# bucket; the per-layer path's kernels also at its prefill, whose 8 prompts
+# of 512 tokens serving_linear flattens into one call
+ENGINE_MS = (8, 1024)
+
+
+def layer_ms():
+    return ENGINE_MS + (BATCH * LAYER_PROMPT_LEN,)
+
+
+def _w4a4_cases(dev, g, run, plain, decodes=(None,), ms=ENGINE_MS):
+    """A W4A4 matmul at the four fused Llama-3-8B projection shapes and
+    each M of `ms`: run(x, wp, s2, j, decode) against plain(x, wp, s2, j)
+    on weight copy j, bit-equal for every phase hint in `decodes`, then
+    timed with torch._int_mm on pre-unpacked int8 weights as the library
+    yardstick.  Returns (cases, max error, the decode layer's totals)."""
     copies = 4
     cases, err = [], 0.0
-    for name, (K, Nh) in cfg_shapes.items():
+    for name, (K, Nh) in W4A4_SHAPES.items():
         wp = torch.randint(0, 256, (copies, K, Nh), dtype=torch.uint8,
                            generator=g, device=dev)
         s2 = (torch.rand((2, Nh), generator=g, device=dev) + 0.5) / (
@@ -171,27 +197,25 @@ def check_w4a4(dev, g):
             torch.int8)
         w_i8 = w_i8.transpose(1, 2).contiguous().transpose(1, 2)
         del w
-        for M in (8, 1024):
+        for M in ms:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            got = MW.w4a4_matmul_paired_stacked(x, wp, s2, 1)
-            xs = MW.token_scales(x)
-            want = MW.w4a4_matmul_paired_stacked_plain(x, wp, s2, 1, xs)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err = max(err, float(diff.max()))
-            # integer accumulation and the same epilogue order: bit-equal
-            if not torch.equal(got, want):
-                raise AssertionError(f"w4a4 {name} M={M}: not bit-equal, "
-                                     f"{int((diff > 0).sum())} differ, "
-                                     f"max {float(diff.max())}")
+            want = plain(x, wp, s2, 1)
+            for decode in decodes:
+                got = run(x, wp, s2, 1, decode)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                err = max(err, float(diff.max()))
+                # integer accumulation and the same epilogue order: bit-equal
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"w4a4 {name} M={M} decode={decode}: not bit-equal, "
+                        f"{int((diff > 0).sum())} differ, max {float(diff.max())}")
             mp = max(32, -(-M // 8) * 8)          # _int_mm wants M > 16
             xq = torch.randint(-8, 8, (mp, K), dtype=torch.int8,
                                generator=g, device=dev)
             t = timings(
-                rotating(lambda j: MW.w4a4_matmul_paired_stacked(
-                    x, wp, s2, j), copies),
-                rotating(lambda j: MW.w4a4_matmul_paired_stacked_plain(
-                    x, wp, s2, j, MW.token_scales(x)), copies),
+                rotating(lambda j: run(x, wp, s2, j, decodes[0]), copies),
+                rotating(lambda j: plain(x, wp, s2, j), copies),
                 rotating(lambda j: torch._int_mm(xq, w_i8[j]), copies))
             nbytes = M * K * 2 + K * Nh + 2 * Nh * 4 + M * 2 * Nh * 2
             b, by = bound_ms(nbytes, 2.0 * M * K * 2 * Nh, "int8")
@@ -202,14 +226,45 @@ def check_w4a4(dev, g):
     total = {k: sum(c[k] for c in dec)
              for k in ("ms", "device_ms", "plain_ms", "library_ms",
                        "bound_ms")}
+    return cases, err, {**total, "bound_by": "bytes" if all(
+        c["bound_by"] == "bytes" for c in dec) else "operations"}
+
+
+def check_w4a4(dev, g):
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    cases, err, total = _w4a4_cases(
+        dev, g, lambda x, wp, s2, j, _: MW.w4a4_matmul_paired_stacked(
+            x, wp, s2, j),
+        lambda x, wp, s2, j: MW.w4a4_matmul_paired_stacked_plain(
+            x, wp, s2, j, MW.token_scales(x)))
     return {"name": "w4a4_matmul_paired_stacked", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/w4a4_matmul.cu",
             "replaces": "rsq_tpu/kernels/matmul_w4.py:559",
             "max_abs_err": err, **total,
-            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in dec)
-            else "operations",
             "unit": "one decode layer: qkv, o, upgate, down at M=8",
             "check": "bit-equal to the plain version, M in (8, 1024)",
+            "cases": cases}
+
+
+def check_w4a4_paired(dev, g):
+    """Row 11, the unstacked W4A4 matmul of the per-layer path (row 12's
+    kernel on the L = 1 view of one weight copy), with the reference's
+    decode and prefill hints: the TPU kernel has an int8 and a bf16 body,
+    the port one kernel that must equal the plain version under both."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    cases, err, total = _w4a4_cases(
+        dev, g, lambda x, wp, s2, j, decode: MW.w4a4_matmul_paired(
+            x, wp[j], s2, decode=decode),
+        lambda x, wp, s2, j: MW.w4a4_matmul_paired_plain(
+            x, wp[j], s2, MW.token_scales(x)), decodes=(True, False),
+        ms=layer_ms())
+    return {"name": "w4a4_matmul_paired", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4a4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:458",
+            "max_abs_err": err, **total,
+            "unit": "one decode layer: qkv, o, upgate, down at M=8",
+            "check": "bit-equal to the plain version with decode=True and "
+                     f"decode=False, M in {layer_ms()}",
             "cases": cases}
 
 
@@ -580,9 +635,9 @@ def _planes(wp):
     return torch.cat([(w << 28) >> 28, (w << 24) >> 28], dim=-1).float()
 
 
-def _w4_cases(dev, g, shapes, run, plain, scales, scale_bytes):
-    """The weight-only kernels at M = 8 and M = 1024 on each (K, Nh, calls
-    per layer) shape, against the plain version (matmul_err) and timed,
+def _w4_cases(dev, g, shapes, run, plain, scales, scale_bytes, ms=ENGINE_MS):
+    """The weight-only kernels at each M of `ms` on each (K, Nh, calls per
+    layer) shape, against the plain version (matmul_err) and timed,
     with torch.matmul of x and the bf16 dequantized weights as the library
     yardstick.  run/plain(x, wp, s, j) call the
     wrapper and its plain version on layer j; scales(L, K, Nh) returns the
@@ -598,7 +653,7 @@ def _w4_cases(dev, g, shapes, run, plain, scales, scale_bytes):
         lib_copies = max(2, -(-128 * 2**20 // (K * Nh * 4)))
         w_deq = [deq(_planes(wp[j]), s, j).to(torch.bfloat16)
                  for j in range(lib_copies)]
-        for M in (8, 1024):
+        for M in ms:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             got, want = run(x, wp, s, 1), plain(x, wp, s, 1)
             torch.cuda.synchronize()
@@ -708,6 +763,262 @@ def check_w4_head(dev, g, cfg):
             "library": "torch.matmul(x, bf16 dequantized weights)",
             "unit": f"int4 lm_head (8, {K}) x ({K}, {N})",
             "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1)",
+            "cases": cases}
+
+
+def check_w4_paired(dev, g, cfg):
+    """Row 9, the unstacked weight-only matmul of the per-layer W4 path (row
+    13's kernel on the L = 1 view), on the same fused shapes."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"qkv": (d, (cfg.q_dim + 2 * cfg.kv_dim) // 2, 1),
+              "o": (cfg.q_dim, d // 2, 1), "upgate": (d, f, 1),
+              "down": (f, d // 2, 1)}
+
+    def scales(L, K, Nh):
+        s2 = (torch.rand((L, 2, Nh), generator=g, device=dev) + 0.5) / (
+            7 * math.sqrt(K))
+        return s2, lambda planes, s, j: planes * s[j].reshape(1, 2 * Nh)
+
+    cases, err = _w4_cases(
+        dev, g, shapes,
+        lambda x, wp, s, j: MW.w4_matmul_paired(x, wp[j], s[j]),
+        lambda x, wp, s, j: MW.w4_matmul_paired_plain(x, wp[j], s[j]),
+        scales, lambda M, Nh: 2 * Nh * 4,            # the paired scales
+        ms=layer_ms())
+    return {"name": "w4_matmul_paired", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:190",
+            "max_abs_err": err, **_layer_total(cases),
+            "library": "torch.matmul(x, bf16 dequantized weights)",
+            "unit": "one decode layer: qkv, o, upgate, down at M=8",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, "
+                     f"M in {layer_ms()}",
+            "cases": cases}
+
+
+def check_w4_affine_unstacked(dev, g, cfg):
+    """Row 10, the unstacked affine matmul of the per-layer E8P path (row
+    14's kernel on the L = 1 view, sh a 0-d tensor on the card)."""
+    from rsq_tpu_torch.kernels import matmul_w4 as MW
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"q|o": (d, cfg.q_dim // 2, 2), "k|v": (d, cfg.kv_dim // 2, 2),
+              "up|gate": (d, f // 2, 2), "down": (f, d // 2, 1)}
+
+    def scales(L, K, Nh):
+        sh = (torch.rand((L,), generator=g, device=dev) * 0.4 + 0.6) / (
+            2 * math.sqrt(K))
+        return sh, lambda planes, s, j: (planes + 0.5) * s[j]
+
+    cases, err = _w4_cases(
+        dev, g, shapes,
+        lambda x, wp, s, j: MW.w4_affine_matmul(x, wp[j], s[j],
+                                                plane_major=True),
+        lambda x, wp, s, j: MW.w4_affine_matmul_plain(
+            x, wp[j], s[j]).reshape(x.shape[0], -1),
+        scales, lambda M, Nh: 4 + M * 4,             # sh and the row sums
+        ms=layer_ms())
+    return {"name": "w4_affine_matmul", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "rsq_tpu/kernels/matmul_w4.py:269",
+            "max_abs_err": err, **_layer_total(cases),
+            "library": "torch.matmul(x, bf16 dequantized weights)",
+            "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, "
+                     f"M in {layer_ms()}",
+            "cases": cases}
+
+
+def _attn_err(got, want, what):
+    """The attention kernels' check: f32 sums in another order over a tiled
+    online softmax, then one bf16 rounding: within 4 bf16 rounding units +
+    2e-3 of the plain version.  Returns the max error."""
+    e = (got.float() - want.float()).abs()
+    if not bool((e <= 4 * BF16_EPS * want.float().abs() + 2e-3).all()):
+        raise AssertionError(f"{what}: max err {float(e.max())}")
+    return float(e.max())
+
+
+def check_decode_attention(dev, g, cfg):
+    """Row 2, the read-only contiguous attention of the per-layer path, at
+    the shapes of row 4 (B=8, S=1024, CONTIG_LENGTHS), default QK as the
+    path runs it, and int8_qk: out, m and l against the plain version; the
+    cache is only read."""
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    G = Hq // Hkv
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    cache = _int4_cache(dev, g, L, B, Hkv, D, S)
+    before = [t.clone() for t in cache]
+    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    live = lengths > 0
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    err = 0.0
+    for int8_qk in (False, True):
+        got = KV.int4_decode_attention_stacked(q, *cache, L - 1, lengths,
+                                               int8_qk=int8_qk)
+        want = KV.decode_attention_plain(q, *cache, L - 1, lengths,
+                                         int8_qk=int8_qk)
+        torch.cuda.synchronize()
+        err = max(err, _attn_err(got[0][live], want[0][live],
+                                 f"decode attention int8_qk={int8_qk}"))
+        # m, l: f32 sums in another order; a logit is a difference of two
+        # products, so 1e-5 relative + 1e-5
+        for a, w in zip(got[1:], want[1:]):
+            e = (a[live] - w[live]).abs()
+            ensure(bool((e <= 1e-5 * w[live].abs() + 1e-5).all()),
+                   f"decode attention m/l: max err {float(e.max())}")
+        ensure(bool(torch.isnan(got[0][~live]).all())
+               and bool((got[1][~live] == -math.inf).all())
+               and bool((got[2][~live] == 0).all()),
+               "decode attention length-0 row")
+    ensure(all(torch.equal(a, b) for a, b in zip(cache, before)),
+           "decode attention wrote the cache")
+    del cache, before
+    big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
+    t = timings(rotating(lambda j: KV.int4_decode_attention_stacked(
+                    q, *big, j, lengths), TIMING_LAYERS),
+                rotating(lambda j: KV.decode_attention_plain(
+                    q, *big, j, lengths), TIMING_LAYERS))
+    del big
+    tokens = sum(CONTIG_LENGTHS)
+    nbytes = (tokens * Hkv * 2 * (D // 2 + 8)                   # cached k, v
+              + 2 * B * Hq * D * 2                              # q, out
+              + 2 * B * Hkv * G * 4 + B * 4)                    # m, l, lengths
+    b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
+    return {"name": "int4_decode_attention_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:497",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "unit": "one decode layer, B=8, S=1024, lengths "
+                    + ",".join(map(str, CONTIG_LENGTHS)) + ", bf16 QK",
+            "check": "out within 4*2^-8 rel + 2e-3 where the length is not "
+                     "0, m and l within 1e-5 rel + 1e-5, int8_qk off and "
+                     "on; length-0 row NaN, -inf, 0; cache unchanged"}
+
+
+# one decode layer of the paged phases: 8 rows of 300-700 tokens
+PAGED_LENGTHS = [300, 400, 480, 511, 512, 600, 700, 595]
+
+
+def _paged_pool(dev, g, L, Hkv, D, page, lengths):
+    """A pool holding each row's pages in no pool order: (pool list,
+    page table (B, NP))."""
+    B = len(lengths)
+    NP = -(-max(lengths) // page)
+    P = B * NP + 1
+    pool = _int4_cache(dev, g, L, P, Hkv, D, page)
+    perm = torch.randperm(P - 1, generator=g, device=dev).to(torch.int32) + 1
+    return pool, perm.reshape(B, NP)
+
+
+def check_paged_read_only(dev, g, cfg):
+    """Row 17, the read-only paged attention of the page-16 path, at pages
+    16 (the main path: a 128-token tile spans 8 pages) and 64, over tables
+    in no pool order, default QK and int8_qk; the top-level times are page
+    16's."""
+    from rsq_tpu_torch.kernels import paged_kv as PKV
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    B = len(PAGED_LENGTHS)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    tokens = sum(PAGED_LENGTHS)
+    cases, err = [], 0.0
+    for page in (16, 64):
+        pool, ptab = _paged_pool(dev, g, TIMING_LAYERS, Hkv, D, page,
+                                 PAGED_LENGTHS)
+        before = [t.clone() for t in pool]
+        for int8_qk in (False, True):
+            got = PKV.int4_paged_decode_attention_stacked(
+                q, *pool, 1, ptab, lengths, int8_qk=int8_qk)
+            want = PKV.paged_read_plain(q, *pool, 1, ptab, lengths,
+                                        int8_qk=int8_qk)
+            torch.cuda.synchronize()
+            err = max(err, _attn_err(got, want, f"paged read page {page} "
+                                                f"int8_qk={int8_qk}"))
+        ensure(all(torch.equal(a, b) for a, b in zip(pool, before)),
+               "paged read wrote the pool")
+        del before
+        t = timings(rotating(lambda j: PKV.int4_paged_decode_attention_stacked(
+                        q, *pool, j, ptab, lengths), TIMING_LAYERS),
+                    rotating(lambda j: PKV.paged_read_plain(
+                        q, *pool, j, ptab, lengths), TIMING_LAYERS))
+        nbytes = (tokens * Hkv * 2 * (D // 2 + 8) + 2 * B * Hq * D * 2
+                  + ptab.numel() * 4 + B * 4)
+        b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
+        cases.append({"page": page, **t, "bound_ms": b, "bound_by": by})
+        del pool
+    return {"name": "int4_paged_decode_attention_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "rsq_tpu/kernels/paged_kv.py:283",
+            "max_abs_err": err,
+            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+            "library_ms": None,
+            "unit": "one decode layer, B=8, page 16, lengths "
+                    + ",".join(map(str, PAGED_LENGTHS)) + ", bf16 QK",
+            "check": "out within 4*2^-8 rel + 2e-3, pages 16 and 64, int8_qk "
+                     "off and on; pool unchanged",
+            "cases": cases}
+
+
+def check_paged_append(dev, g, cfg):
+    """Row 21, the pool append of the page-16 path, at pages 16 and 512
+    (rows 0 and 1 share a page at different lanes): pools bit-equal to the
+    plain version's; timed with indexed assignment as the library call.
+    The top-level times are page 16's."""
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels import paged_kv as PKV
+    H, D = cfg.num_key_value_heads, cfg.head_dim_
+    B, L = len(PAGED_LENGTHS), 2
+    pos = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    nk, nv = (torch.randn((B, H, D), generator=g, device=dev)
+              for _ in range(2))
+    new = (*KV.asym_quant_pack_head(nk), *KV.asym_quant_pack_head(nv))
+    cases, err = [], 0.0
+    for page in (16, 512):
+        pool, ptab = _paged_pool(dev, g, L, H, D, page, PAGED_LENGTHS)
+        # row 1 appends into row 0's page, at another lane
+        ptab[1, PAGED_LENGTHS[1] // page] = ptab[0, PAGED_LENGTHS[0] // page]
+        ensure(PAGED_LENGTHS[0] % page != PAGED_LENGTHS[1] % page)
+        plain = [t.clone() for t in pool]
+        PKV.paged_append_pool(*pool, L - 1, ptab, pos, *new)
+        PKV.paged_append_plain(*plain, L - 1, ptab, pos, *new)
+        torch.cuda.synchronize()
+        ensure(all(torch.equal(a, b) for a, b in zip(pool, plain)),
+               f"paged append page {page}: pools differ from the plain version")
+        err = max(err, max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(pool, plain)))
+        del plain
+        slot = (pos.long() // page).clamp(max=ptab.shape[1] - 1)
+        pid = ptab.long()[torch.arange(B, device=dev), slot]
+        col = pos.long() % page
+
+        def library(i=0):
+            for arr, val in zip(pool, new):
+                arr[L - 1, pid, :, :, col] = val
+
+        t = timings(lambda i=0: PKV.paged_append_pool(*pool, L - 1, ptab, pos,
+                                                      *new),
+                    lambda i=0: PKV.paged_append_plain(*pool, L - 1, ptab,
+                                                       pos, *new),
+                    library)
+        b, by = bound_ms(2 * 2 * B * H * (D // 2 + 8) + 2 * B * 4, 0.0, "bf16")
+        cases.append({"page": page, **t, "bound_ms": b, "bound_by": by})
+        del pool
+    return {"name": "paged_append_pool", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "rsq_tpu/kernels/paged_kv.py:801",
+            "max_abs_err": err,
+            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by")},
+            "library": "indexed assignment pool[layer, pid, :, :, col] = ...",
+            "unit": "one decode layer, B=8, page 16",
+            "check": "whole pools bit-equal to the plain version, pages 16 "
+                     "and 512, two rows appending into one page",
             "cases": cases}
 
 
@@ -825,12 +1136,13 @@ def small_check(dev):
             bits=bits)
         sc = S.ServingConfig(model=cfg, max_seq=256, attn_int8_qk=True,
                              **flags)
-        for kind in ("paged", "contiguous"):
+        for kind in ("paged", "paged16", "contiguous"):
             runs = []
             for d in ("cuda", "cpu"):
-                if kind == "paged":
+                if kind != "contiguous":
+                    page = 128 if kind == "paged" else 16
                     eng = PagedServingEngine(tree_to(sp, d), sc, num_slots=2,
-                                             page_size=128,
+                                             page_size=page,
                                              record_logits=True, device=d)
                 else:
                     eng = ServingEngine(tree_to(sp, d), sc, num_slots=2,
@@ -839,18 +1151,74 @@ def small_check(dev):
                     eng.add_request(p, max_new_tokens=4)
                 runs.append({r.uid: r for r in eng.run_until_done(max_steps=50)})
             compared, worst = _compare_runs(*runs, (1, 2, 3), 4, lmax, lrms)
-            if kind == "paged":
-                ensure(runs[0][3].reused_pages == 1)
+            if kind != "contiguous":
+                ensure(runs[0][3].reused_pages == 128 // page)
                 ensure(all(runs[0][u].reused_pages == runs[1][u].reused_pages
                            for u in (1, 2, 3)))
             out[f"{conf}_{kind}"] = {"logit_steps_compared": compared,
                                      "max_err_over_std": worst,
                                      "tolerance_over_std": lmax}
+        # the per-layer entry points on unstacked params: prefill and
+        # decode_step, and the paged oracles at page 16
+        layers = S.unstack_layer_params(sp)
+        for kind, run in (("layers", _greedy_layers),
+                          ("paged16_oracles", _greedy_paged_oracles)):
+            runs = [{1: run(tree_to(layers, d), sc, prompts[1], d)}
+                    for d in ("cuda", "cpu")]
+            compared, worst = _compare_runs(*runs, (1,), 4, lmax, lrms)
+            out[f"{conf}_{kind}"] = {"logit_steps_compared": compared,
+                                     "max_err_over_std": worst,
+                                     "tolerance_over_std": lmax}
     return {"small": {"config": "tiny (2 layers, hidden 64, heads 4/2, "
-                                "intermediate 112), INT4-KV; paged at page "
-                                "128, contiguous at max_seq 256; W4A4 and "
-                                "E8P with an int8 lm_head, W4A16 int4",
+                                "intermediate 112), INT4-KV; paged at pages "
+                                "128 and 16, contiguous at max_seq 256, the "
+                                "per-layer prefill/decode_step and the paged "
+                                "oracles (page 16) on unstacked params; W4A4 "
+                                "and E8P with an int8 lm_head, W4A16 int4",
                       **out}}
+
+
+def _greedy_layers(params, sc, prompt, d):
+    """prefill then 3 decode_steps of one request on unstacked params:
+    its 4 tokens and the logits that chose them."""
+    from rsq_tpu_torch.serving import model as S
+    cache = S.init_cache(sc, 1, device=d)
+    logits, cache = S.prefill(params, cache,
+                              torch.as_tensor(prompt[None], device=d), sc)
+    out = SimpleNamespace(output=[], logit_trace=[])
+    for _ in range(4):
+        out.logit_trace.append(logits[0].float().cpu().numpy())
+        tok = torch.argmax(logits, dim=-1)
+        out.output.append(int(tok[0]))
+        logits, cache = S.decode_step(params, cache, tok, sc)
+    return out
+
+
+def _greedy_paged_oracles(params, sc, prompt, d, page=16):
+    """prefill_paged then 3 decode_step_paged of one request at page 16."""
+    from rsq_tpu_torch.kernels import paged_kv as PKV
+    from rsq_tpu_torch.serving import paged as SPG
+    cfg = sc.cfg
+    npages = -(-(len(prompt) + 4) // page)
+    pool = PKV.init_pool(cfg.num_layers, npages + 1, cfg.num_key_value_heads,
+                         cfg.head_dim_, page, device=d)
+    row = torch.arange(1, npages + 1, dtype=torch.int32)
+    tail = np.zeros((1, -(-len(prompt) // page) * page), np.int64)
+    tail[0, :len(prompt)] = prompt
+    logits, pool = SPG.prefill_paged(params, pool, row.tolist(),
+                                     torch.as_tensor(tail, device=d), sc, 0,
+                                     0, len(prompt))
+    logits = logits[None]
+    ptab, lengths = row[None].to(d), torch.tensor([len(prompt)], device=d)
+    out = SimpleNamespace(output=[], logit_trace=[])
+    for _ in range(4):
+        out.logit_trace.append(logits[0].float().cpu().numpy())
+        tok = torch.argmax(logits, dim=-1)
+        out.output.append(int(tok[0]))
+        logits, pool = SPG.decode_step_paged(params, pool, ptab, lengths, tok,
+                                             sc)
+        lengths = lengths + 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1082,11 +1450,13 @@ def serve_e8p(dev, cfg, prompts, profile: bool):
     rec, launches, _ = drive(eng, prompts, cfg, E8P_KERNELS)
     if profile:
         profile_contiguous("serve_e8p", eng, dev)
+    del eng
+    torch.cuda.empty_cache()
     return {"serve_e8p": {
         "model": "llama3_8b widths, 32 layers, random E8P codes (seed 0) "
                  "re-encoded to affine int4",
         "max_seq": 1024, "attn_int8_qk": True, "int8_lm_head": True,
-        **rec}}, launches
+        **rec}}, launches, params
 
 
 def serve_bf16(dev, cfg, prompts, profile: bool):
@@ -1111,6 +1481,199 @@ def serve_bf16(dev, cfg, prompts, profile: bool):
         "model": "llama3_8b widths, 32 layers, random dense bf16 weights "
                  "(seed 0)", "max_seq": 1024, "bf16_lm_head": True,
         **rec}}, launches
+
+
+# the per-layer phases: one equal-length batch, as prefill takes it
+LAYER_PROMPT_LEN, SCAN_STEPS = 512, 4
+LAYERS_KERNELS = ("w4a4_matmul_paired", "int4_decode_attention_stacked",
+                  "w8_matmul")
+LAYERS_W4_KERNELS = ("w4_matmul_paired", "int4_decode_attention_stacked",
+                     "w4_matmul")
+LAYERS_E8P_KERNELS = ("w4_affine_matmul", "int4_decode_attention_stacked",
+                      "w8_matmul")
+PAGE16_KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
+                  "paged_append_pool", "int4_paged_decode_attention_stacked")
+
+
+def layer_prompts(cfg):
+    """8 prompts of LAYER_PROMPT_LEN tokens (seed 1)."""
+    return np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, LAYER_PROMPT_LEN))
+
+
+def drive_layers(params, sc, ids, cfg, kernels, keep: int = 0):
+    """The per-layer main path: prefill of the 8 prompts, then decode_step
+    on each step's argmax until every row has NEW_TOKENS new tokens, on
+    unstacked params["layers"].  The launch counts and the peak memory are
+    reset just before the prefill.  Checks finite logits of the prefill and
+    the first steps, the tokens and the cache length, and that each of
+    `kernels` launched.  Returns (record, launches, the logits of the
+    prefill and the first `keep` steps, the tokens fed to those steps)."""
+    from rsq_tpu_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from rsq_tpu_torch.serving import model as S
+    dev = params["embed"].device
+    cache = S.init_cache(sc, BATCH, device=dev)
+    ids_t = torch.as_tensor(ids, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # counts from here on: the main path
+    t0 = time.perf_counter()
+    logits, cache = S.prefill(params, cache, ids_t, sc)
+    tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    trace, toks, step_s, per_step = [logits], [tok], [], None
+    for n in range(NEW_TOKENS - 1):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        logits, cache = S.decode_step(params, cache, tok, sc)
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if n == 1:
+            per_step = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+        if n < keep:
+            trace.append(logits)
+        toks.append(tok)
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    out = torch.stack(toks, dim=1).cpu().numpy()
+    ensure(out.shape == (BATCH, NEW_TOKENS)
+           and ((0 <= out) & (out < cfg.vocab_size)).all())
+    ensure(all(bool(torch.isfinite(t).all()) and t.shape == (BATCH, cfg.vocab_size)
+               for t in trace[:3]), "non-finite logits")
+    ensure(cache["length"].tolist() == [LAYER_PROMPT_LEN + NEW_TOKENS - 1]
+           * BATCH, "cache length")
+    missing = [k for k in kernels if launches[k] == 0]
+    ensure(not missing, f"kernels never launched on the main path: {missing}")
+    timed = step_s[1:]
+    step_ms = float(np.median(timed)) * 1e3
+    prompt_tokens = BATCH * LAYER_PROMPT_LEN
+    return {
+        "batch": BATCH, "prompt_tokens": prompt_tokens,
+        "prompt_lens": [LAYER_PROMPT_LEN] * BATCH,
+        "new_tokens_each": NEW_TOKENS,
+        "prefill_ms_total": prefill_s * 1e3,
+        "prefill_ms_per_request": prefill_s * 1e3 / BATCH,
+        "prefill_tok_s": prompt_tokens / prefill_s,
+        "decode_ms_per_step_median": step_ms,
+        "decode_ms_per_step_min": float(np.min(timed)) * 1e3,
+        "decode_steps_timed": len(timed),
+        "decode_tok_s": BATCH / (step_ms / 1e3),
+        "launches_per_decode_step": per_step,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}, \
+        launches, trace, toks
+
+
+def profile_layers(name, params, sc, ids):
+    """profile_decode of one per-layer decode_step, all rows at length 512."""
+    from rsq_tpu_torch.serving import model as S
+    dev = params["embed"].device
+    cache = S.init_cache(sc, BATCH, device=dev)
+    S.prefill(params, cache, torch.as_tensor(ids, device=dev), sc)
+    toks = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+    lengths = cache["length"]
+
+    def step():
+        cache["length"] = lengths
+        S.decode_step(params, cache, toks, sc)
+
+    profile_decode(name, step)
+
+
+def serve_layers(dev, cfg, params, name, sc, kernels, what, profile: bool,
+                 keep: int = 0):
+    """One per-layer phase (E and its variants) on unstacked params."""
+    from rsq_tpu_torch.serving import model as S
+    layers = S.unstack_layer_params(params)
+    ids = layer_prompts(cfg)
+    rec, launches, trace, toks = drive_layers(layers, sc, ids, cfg, kernels,
+                                              keep)
+    if profile:
+        profile_layers(name, layers, sc, ids)
+    return {name: {"model": what, "layers": cfg.num_layers,
+                   "max_seq": sc.max_seq, "attn": "bf16 QK (the per-layer "
+                   "path passes no int8_qk)", **rec}}, launches, trace, toks
+
+
+def scan_check(dev, cfg, params, sc, trace, toks):
+    """prefill_stacked and SCAN_STEPS steps of decode_step_stacked under
+    RSQ_SCAN_DECODE=1 on (E)'s stacked weights, fed (E)'s tokens: the
+    logits against (E)'s per-layer ones.  Both run the same functions in
+    the same order on views of the same tensors: expected bit-equal, and
+    held at least to the end-to-end tolerance."""
+    from rsq_tpu_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from rsq_tpu_torch.serving import model as S
+    ids = torch.as_tensor(layer_prompts(cfg), device=dev)
+    cache = S.init_cache(sc, BATCH, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = S.prefill_stacked(params, cache, ids, sc)
+    got, step_s, per_step = [logits], [], None
+    os.environ["RSQ_SCAN_DECODE"] = "1"
+    try:
+        for n in range(SCAN_STEPS):
+            before = dict(LAUNCHES)
+            t1 = time.perf_counter()
+            logits, cache = S.decode_step_stacked(params, cache, toks[n], sc)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            if n == 1:
+                per_step = {k: LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+            got.append(logits)
+    finally:
+        del os.environ["RSQ_SCAN_DECODE"]
+    total_s = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    missing = [k for k in LAYERS_KERNELS if launches[k] == 0]
+    ensure(not missing, f"kernels never launched on the scan path: {missing}")
+    bit_equal, worst = [], 0.0
+    for a, b in zip(got, trace):
+        bit_equal.append(bool(torch.equal(a, b)))
+        af, bf = a.float().cpu().numpy(), b.float().cpu().numpy()
+        for r in range(BATCH):
+            sd = float(np.std(bf[r]))
+            e = np.abs(af[r] - bf[r])
+            ensure(np.isfinite(af[r]).all() and e.max() <= LOGIT_MAX * sd
+                   and np.sqrt(np.mean(e ** 2)) <= LOGIT_RMS * sd,
+                   "scan logits beyond the tolerance")
+            worst = max(worst, float(e.max() / sd))
+    return {"scan": {
+        "model": "the serve_layers weights, stacked", "steps": SCAN_STEPS,
+        "bit_equal_per_step": bit_equal, "max_err_over_std": worst,
+        "tolerance_over_std": LOGIT_MAX,
+        "wall_ms_prefill_and_steps": total_s * 1e3,
+        "decode_ms_per_step_median": float(np.median(step_s)) * 1e3,
+        "launches_per_decode_step": per_step}}, launches
+
+
+def serve_page16(dev, cfg, params, prompts, profile: bool):
+    """PagedServingEngine at page 16 (vLLM's default block size), W4A4
+    INT4-KV, max_seq 1024: each step appends with the pool-append kernel
+    and attends with the read-only paged kernel.  attn_int8_qk is set and,
+    as in the reference, ignored at pages under 128."""
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    sc = S.ServingConfig(model=cfg, a4=True, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    eng = PagedServingEngine(params, sc, num_slots=BATCH, page_size=16,
+                             device=dev)
+    rec, launches, done = drive(eng, prompts, cfg, PAGE16_KERNELS)
+    reused = sorted(r.reused_pages for r in done)
+    ensure(reused[-1] == 37, f"prefix cache: {reused}, expected 37 pages")
+    ensure(launches["int4_paged_decode_attention_self_append"] == 0)
+    if profile:
+        from rsq_tpu_torch.serving.paged import decode_step_paged_fast
+        ptab = torch.as_tensor(eng.page_tables, device=dev)
+        lengths = torch.full((BATCH,), 512, dtype=torch.int32, device=dev)
+        toks = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+        profile_decode("serve_page16", lambda: decode_step_paged_fast(
+            params, eng.pool, ptab, lengths, toks, sc))
+    return {"serve_page16": {
+        "model": "llama3_8b widths, 32 layers, random W4A4 weights (seed 0)",
+        "page": 16, "max_seq": 1024,
+        "attn_int8_qk": "set, ignored at pages under 128 (as the reference)",
+        "int8_lm_head": True, "prefix_pages_reused": reused, **rec}}, launches
 
 
 def profile_decode(name, step):
@@ -1200,7 +1763,13 @@ def main(argv):
                lambda: check_w16(dev, g, cfg),
                lambda: check_w4(dev, g, cfg),
                lambda: check_w4_affine(dev, g, cfg),
-               lambda: check_w4_head(dev, g, cfg)):
+               lambda: check_w4_head(dev, g, cfg),
+               lambda: check_w4a4_paired(dev, g),
+               lambda: check_w4_paired(dev, g, cfg),
+               lambda: check_w4_affine_unstacked(dev, g, cfg),
+               lambda: check_decode_attention(dev, g, cfg),
+               lambda: check_paged_read_only(dev, g, cfg),
+               lambda: check_paged_append(dev, g, cfg)):
         t0 = time.perf_counter()
         kernels.append(fn())
         torch.cuda.empty_cache()
@@ -1232,13 +1801,49 @@ def main(argv):
     run_phase("serve", lambda: serve_paged(dev, cfg, params, prompts, profile))
     run_phase("serve_contiguous", lambda: serve_contiguous(
         dev, cfg, params, prompts, profile))
+    w4a4 = S.ServingConfig(model=cfg, a4=True, kv_int4=True, kv_hadamard=True,
+                           online_had=True, max_seq=1024)
+    layers_e = {}
+
+    def run_layers_e():
+        rec, launches, layers_e["trace"], layers_e["toks"] = serve_layers(
+            dev, cfg, params, "serve_layers", w4a4, LAYERS_KERNELS,
+            "llama3_8b widths, 32 layers, the W4A4 phases' random weights "
+            "(seed 0), unstacked", profile, keep=SCAN_STEPS)
+        return rec, launches
+
+    run_phase("serve_layers", run_layers_e)
+    run_phase("scan", lambda: scan_check(dev, cfg, params, w4a4,
+                                         layers_e["trace"], layers_e["toks"]))
+    layers_e.clear()
+    run_phase("serve_page16", lambda: serve_page16(dev, cfg, params, prompts,
+                                                   profile))
     del params
     params = S.quantize_lm_head(raw, bits=4)
     del raw
     run_phase("serve_w4", lambda: serve_w4(dev, cfg, params, prompts, profile))
+    run_phase("serve_layers_w4", lambda: serve_layers(
+        dev, cfg, params, "serve_layers_w4",
+        S.ServingConfig(model=cfg, a4=False, kv_int4=True, kv_hadamard=True,
+                        online_had=True, max_seq=1024), LAYERS_W4_KERNELS,
+        "llama3_8b widths, 32 layers, the W4A4 phases' random weights served "
+        "weight-only (seed 0), int4 lm_head, unstacked", profile)[:2])
     del params
     torch.cuda.empty_cache()
-    run_phase("serve_e8p", lambda: serve_e8p(dev, cfg, prompts, profile))
+    e8p = {}
+
+    def run_e8p():
+        rec, launches, e8p["params"] = serve_e8p(dev, cfg, prompts, profile)
+        return rec, launches
+
+    run_phase("serve_e8p", run_e8p)
+    run_phase("serve_layers_e8p", lambda: serve_layers(
+        dev, cfg, e8p["params"], "serve_layers_e8p",
+        S.ServingConfig(model=cfg, a4=False, kv_int4=True, kv_hadamard=True,
+                        online_had=True, max_seq=1024), LAYERS_E8P_KERNELS,
+        "llama3_8b widths, 32 layers, random E8P codes (seed 0) re-encoded "
+        "to affine int4, unstacked", profile)[:2])
+    e8p.clear()
     torch.cuda.empty_cache()
     run_phase("serve_bf16", lambda: serve_bf16(dev, cfg, prompts, profile))
     step = {name: rec[name]["decode_ms_per_step_median"]
@@ -1249,6 +1854,9 @@ def main(argv):
         "w4_over_w4a4_paged_decode_ms": step["serve_w4"] / step["serve"],
         "e8p_over_w4a4_contiguous_decode_ms":
             step["serve_e8p"] / step["serve_contiguous"],
+        "layers_over_w4a4_contiguous_decode_ms":
+            step["serve_layers"] / step["serve_contiguous"],
+        "page16_over_page512_decode_ms": step["serve_page16"] / step["serve"],
         "smoke_s_after_device_check": time.perf_counter() - t_start}}))
 
     for k in kernels:
@@ -1259,6 +1867,7 @@ def main(argv):
         k["launches"] = sum(n for n, _ in by_phase.values())
         k["launches_by_phase"] = {n: v[0] for n, v in by_phase.items()}
         k["launches_per_decode_step"] = {n: v[1] for n, v in by_phase.items()}
+        k["card"] = smi
         ensure(k["launches"] > 0, f"{k['name']} not on any main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -30,6 +30,12 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * recip_f32(c)
 
 
+def mul_div_const(x: torch.Tensor, c: float, d: float) -> torch.Tensor:
+    """x * c / d as the reference computes it under jit: XLA folds the two
+    constants into one, x * f32(f32(c) * f32(1/d))."""
+    return x * float(np.float32(c) * np.float32(recip_f32(d)))
+
+
 def div(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s with IEEE division in x's dtype, on any device."""
     return x / torch.tensor(s, dtype=x.dtype, device=x.device)

@@ -1,40 +1,50 @@
-// Device body shared by the two INT4 decode-attention kernels that fold the
-// new token in and append it: the paged one (paged_attention.cu) and the
-// contiguous-slot one (contiguous_attention.cu).  They differ only in where
-// row b's tokens live, so the body is templated on an addressing functor
-// and the two cannot drift apart.
+// Device bodies shared by the INT4 decode-attention kernels: the paged ones
+// (paged_attention.cu) and the contiguous-slot ones (contiguous_attention.cu),
+// each in two forms -- `self_append`, which folds the new token in and
+// appends it, and `read_only`, which attends over the cached tokens and
+// emits the softmax state.  The kernels differ only in where row b's tokens
+// live, so the bodies are templated on an addressing functor; both forms
+// run the one tile loop (`attend_cached`), so none of the four can drift
+// from the others.
 //
-// Computes, per batch row b and kv head h, for the G = Hq/Hkv query rows of
-//   that head (q pre-scaled by sm_scale in f32), over the cached tokens
-//   pos < len, the reference's _attend_tile (rsq_tpu/kernels/kv_cache.py
-//   :265-371) rounding points:
+// attend_cached computes, per batch row b and kv head h, for the G = Hq/Hkv
+//   query rows of that head (q pre-scaled by sm_scale in f32), over the
+//   cached tokens pos < len, the reference's _attend_tile
+//   (rsq_tpu/kernels/kv_cache.py :265-371) rounding points:
 //     logits = raw*ks - qsum*kz, raw = bf16(q) . u (or, with int8_qk,
 //       int_dot(q_i8, u) * qs with qs = max|q| * f32(1/127), the reference's
 //       `/ 127.0` as XLA compiles it under jit), masked with -1e30;
 //     online softmax (m, l); ps = bf16(p*vs); acc = acc*alpha + ps.u_v - sum(p*vz)
-//   then _self_fold_finalize (:435-471): one more softmax step over the new
-//   token's dequantized (k_self, v_self) with the f32 q, out = bf16(acc/l).
-//   Finally the new token's codes and (scale, zero) are written in place at
-//   the column the functor names.
+// self_append then runs _self_fold_finalize (:435-471): one more softmax
+//   step over the new token's dequantized (k_self, v_self) with the f32 q,
+//   out = bf16(acc/l); finally the new token's codes and (scale, zero) are
+//   written in place at the column the functor names.
+// read_only writes out = bf16(acc/l) and, where asked, the state m and l
+//   (the reference's _decode_kernel_pref, :374-432).  A row of length 0
+//   reads nothing: out = bf16(0/0) = NaN, m = -inf, l = 0 (the serving
+//   paths never read such a row: they append before they attend).
 // Design: one block of T = 128 threads per (b, kv head).  It walks the row's
-//   tokens in 128-token tiles: a tile's codes and parameters are staged in
-//   shared memory with coalesced loads (tokens past len are not read and
-//   stage as zeros); thread t scores token t for all G rows; block
-//   reductions give the tile max and sums; thread d then accumulates output
-//   dimension d.  The V tile is stored token-major, one row per token padded
-//   to VROW bytes, so that loop's reads (neighbouring threads, neighbouring
-//   d) and the staging stores (neighbouring threads, neighbouring tokens)
-//   each fall on distinct shared-memory banks.  The append writes one column
-//   after the block's reads, so nothing is staged and no write can be lost.
+//   tokens in 128-token tiles: thread t stages token t of the tile (its codes
+//   and parameters, found through the functor one token at a time, so a
+//   tile may straddle pages of any size) into shared memory; neighbouring
+//   threads load neighbouring tokens, coalesced within a page.  Tokens past
+//   len are not read and stage as zeros.  Thread t scores token t for all G
+//   rows; block reductions give the tile max and sums; thread d then
+//   accumulates output dimension d.  The V tile is stored token-major, one
+//   row per token padded to VROW bytes, so that loop's reads (neighbouring
+//   threads, neighbouring d) and the staging stores (neighbouring threads,
+//   neighbouring tokens) each fall on distinct shared-memory banks.  The
+//   append writes one column after the block's reads, so nothing is staged
+//   and no write can be lost.
 //
 // Addressing functor (the codes and parameters of one (b, h) share it):
 //   int cap() const              tokens the row can address (reads stop there)
 //   int stride() const           elements between rows d2 (and param rows)
-//   size_t codes(int t) const    offset of (d2 = 0, token t) in kq / vq; a
-//                                tile of 128 tokens from t is contiguous
+//   size_t codes(int t) const    offset of (d2 = 0, token t) in kq / vq
 //   size_t params(int t) const   offset of (row 0, token t) in kp / vp
 //   bool append(int len, size_t* c, size_t* p) const
 //                                the new token's column; false: write nothing
+//                                (self_append only)
 
 #pragma once
 
@@ -54,12 +64,12 @@ constexpr float MASK_VALUE = -1e30f;
 
 struct Args {
   const __nv_bfloat16* q;     // (B, Hq, D)
-  uint8_t* kq;                // codes, updated in place
-  float* kp;                  // (scale, zero), updated in place
+  uint8_t* kq;                // codes (updated in place by self_append)
+  float* kp;                  // (scale, zero)
   uint8_t* vq;
   float* vp;
   const int32_t* lengths;     // (B,) cached tokens
-  const float* k_self;        // (B, Hkv, D) dequantized new token
+  const float* k_self;        // (B, Hkv, D) dequantized new token (self_append)
   const float* v_self;
   const uint8_t* nkq;         // (B, Hkv, D/2) its codes
   const float* nkp;           // (B, Hkv, 2) its (scale, zero)
@@ -70,7 +80,48 @@ struct Args {
   float sm_scale;
   int int8_qk;
   float inv127;
+  float* m_out;               // (B, Hkv, G) softmax state (read_only; may be null)
+  float* l_out;
 };
+
+// The fields every launcher sets.  The new token's (k_self .. nvp) and the
+// state outputs (m_out, l_out) stay null: self_args fills the first, a
+// read-only launcher that wants the state the second.  The read-only form
+// never writes the codes or parameters.
+inline Args make_args(const void* q, const void* kq, const void* kp,
+                      const void* vq, const void* vp, const void* lengths,
+                      void* out, int Hkv, int G, int D, float sm_scale,
+                      int int8_qk, float inv127) {
+  Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kq = static_cast<uint8_t*>(const_cast<void*>(kq));
+  a.kp = static_cast<float*>(const_cast<void*>(kp));
+  a.vq = static_cast<uint8_t*>(const_cast<void*>(vq));
+  a.vp = static_cast<float*>(const_cast<void*>(vp));
+  a.lengths = static_cast<const int32_t*>(lengths);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.Hkv = Hkv; a.G = G; a.D = D;
+  a.sm_scale = sm_scale; a.int8_qk = int8_qk; a.inv127 = inv127;
+  return a;
+}
+
+// make_args plus the new token of the self-append form.
+inline Args self_args(const void* q, void* kq, void* kp, void* vq, void* vp,
+                      const void* lengths, const void* k_self,
+                      const void* v_self, const void* nkq, const void* nkp,
+                      const void* nvq, const void* nvp, void* out, int Hkv,
+                      int G, int D, float sm_scale, int int8_qk,
+                      float inv127) {
+  Args a = make_args(q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale,
+                     int8_qk, inv127);
+  a.k_self = static_cast<const float*>(k_self);
+  a.v_self = static_cast<const float*>(v_self);
+  a.nkq = static_cast<const uint8_t*>(nkq);
+  a.nkp = static_cast<const float*>(nkp);
+  a.nvq = static_cast<const uint8_t*>(nvq);
+  a.nvp = static_cast<const float*>(nvp);
+  return a;
+}
 
 // All-reduce G values across the block: warp shuffles, then every thread
 // combines the NW warp partials in the same fixed order.
@@ -97,10 +148,16 @@ __device__ __forceinline__ void block_allreduce(float (&v)[MAXG], int G,
   __syncthreads();
 }
 
+// The tile loop over row b's cached tokens for kv head h.  Fills qf with the
+// f32 q * sm_scale and leaves the online-softmax state in m, l (the same in
+// every thread) and acc (output dimension tid, for tid < D).
 template <class Addr>
-__device__ __forceinline__ void self_append(const Args& a, const Addr& at,
-                                            int b, int h) {
-  __shared__ float qf[MAXG][MAXD];      // f32 q * sm_scale
+__device__ __forceinline__ void attend_cached(const Args& a, const Addr& at,
+                                              int b, int h, int len,
+                                              float (*qf)[MAXD],
+                                              float (&m)[MAXG],
+                                              float (&l)[MAXG],
+                                              float (&acc)[MAXG]) {
   __shared__ float qd[MAXG][MAXD];      // q as the QK dot sees it
   __shared__ float qsum_s[MAXG], qs_s[MAXG];
   __shared__ uint8_t kt[MAXD / 2][T], vt[T][VROW];
@@ -111,7 +168,6 @@ __device__ __forceinline__ void self_append(const Args& a, const Addr& at,
   const int tid = threadIdx.x;
   const int G = a.G, D = a.D, D2 = a.D / 2;
   const int Hq = a.Hkv * G;
-  const int len = a.lengths[b];
   const int stride = at.stride();
 
   for (int i = tid; i < G * D; i += T) {
@@ -147,29 +203,26 @@ __device__ __forceinline__ void self_append(const Args& a, const Addr& at,
   }
   __syncthreads();
 
-  float m[MAXG], l[MAXG], acc[MAXG];
   for (int g = 0; g < MAXG; ++g) { m[g] = -INFINITY; l[g] = 0.0f; acc[g] = 0.0f; }
 
   const int len_tab = min(len, at.cap());            // never past the row
   for (int t0 = 0; t0 < len_tab; t0 += T) {
-    const int nt = min(T, len_tab - t0);             // cached tokens in the tile
-    const size_t cbase = at.codes(t0);
-    for (int i = tid; i < D2 * T; i += T) {
-      const int d2 = i / T, t = i % T;
-      const bool ok = t < nt;
-      kt[d2][t] = ok ? a.kq[cbase + (size_t)d2 * stride + t] : 0;
-      vt[t][d2] = ok ? a.vq[cbase + (size_t)d2 * stride + t] : 0;
+    // thread t stages token t0 + t of the tile
+    const int t = tid;
+    const bool tok = t < min(T, len_tab - t0);       // a cached token
+    const size_t cb = tok ? at.codes(t0 + t) : 0;
+    for (int d2 = 0; d2 < D2; ++d2) {
+      kt[d2][t] = tok ? a.kq[cb + (size_t)d2 * stride] : 0;
+      vt[t][d2] = tok ? a.vq[cb + (size_t)d2 * stride] : 0;
     }
-    const size_t pbase = at.params(t0);
-    const bool tok = tid < nt;
-    kpar[0][tid] = tok ? a.kp[pbase + tid] : 0.0f;
-    kpar[1][tid] = tok ? a.kp[pbase + stride + tid] : 0.0f;
-    vpar[0][tid] = tok ? a.vp[pbase + tid] : 0.0f;
-    vpar[1][tid] = tok ? a.vp[pbase + stride + tid] : 0.0f;
+    const size_t pb = tok ? at.params(t0 + t) : 0;
+    kpar[0][t] = tok ? a.kp[pb] : 0.0f;
+    kpar[1][t] = tok ? a.kp[pb + stride] : 0.0f;
+    vpar[0][t] = tok ? a.vp[pb] : 0.0f;
+    vpar[1][t] = tok ? a.vp[pb + stride] : 0.0f;
     __syncthreads();
 
     // scores of token t for every query row
-    const int t = tid;
     float lg[MAXG];
     for (int g = 0; g < G; ++g) {
       float raw = 0.0f;
@@ -220,6 +273,19 @@ __device__ __forceinline__ void self_append(const Args& a, const Addr& at,
     }
     __syncthreads();   // tiles are overwritten by the next iteration
   }
+}
+
+template <class Addr>
+__device__ __forceinline__ void self_append(const Args& a, const Addr& at,
+                                            int b, int h) {
+  __shared__ float qf[MAXG][MAXD];      // f32 q * sm_scale
+  const int tid = threadIdx.x;
+  const int G = a.G, D = a.D, D2 = a.D / 2;
+  const int Hq = a.Hkv * G;
+  const int len = a.lengths[b];
+  const int stride = at.stride();
+  float m[MAXG], l[MAXG], acc[MAXG];
+  attend_cached(a, at, b, h, len, qf, m, l, acc);
 
   // fold the new token (f32 q against the dequantized k_self / v_self)
   const size_t srow = ((size_t)b * a.Hkv + h) * D;
@@ -249,6 +315,29 @@ __device__ __forceinline__ void self_append(const Args& a, const Addr& at,
   if (tid < 2) {
     a.kp[wp + (size_t)tid * stride] = a.nkp[nrow * 2 + tid];
     a.vp[wp + (size_t)tid * stride] = a.nvp[nrow * 2 + tid];
+  }
+}
+
+template <class Addr>
+__device__ __forceinline__ void read_only(const Args& a, const Addr& at,
+                                          int b, int h) {
+  __shared__ float qf[MAXG][MAXD];
+  const int tid = threadIdx.x;
+  const int G = a.G, D = a.D;
+  const int Hq = a.Hkv * G;
+  float m[MAXG], l[MAXG], acc[MAXG];
+  attend_cached(a, at, b, h, a.lengths[b], qf, m, l, acc);
+  if (tid < D) {
+    for (int g = 0; g < G; ++g)
+      a.out[((size_t)b * Hq + h * G + g) * D + tid] =
+          __float2bfloat16_rn(__fdiv_rn(acc[g], l[g]));
+  }
+  if (tid == 0 && a.m_out != nullptr) {
+    const size_t srow = ((size_t)b * a.Hkv + h) * G;
+    for (int g = 0; g < G; ++g) {
+      a.m_out[srow + g] = m[g];
+      a.l_out[srow + g] = l[g];
+    }
   }
 }
 

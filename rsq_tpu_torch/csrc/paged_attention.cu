@@ -1,20 +1,39 @@
-// Paged INT4 decode attention with the new token folded in and appended.
+// Paged INT4 decode attention, and the paged pool append.
 //
-// Replaces: rsq_tpu/kernels/paged_kv.py int4_paged_decode_attention_self_append
-//   (:463) -- both its grid kernel _paged_kernel_self_append (:388) and its
-//   one-grid-step twin _paged_kernel_self_append_flat (:580), which compute
-//   the same function (the split exists only for TPU grid-step overhead).
-// Computes: int4_attention.cuh's body over row b's cached tokens, found
-//   through the page table; the new token goes to
-//   (layer, ptab[b, len // page], h, :, len % page).
-// Bound on this card: the pool bytes of the cached tokens (D/2 code bytes
-//   plus 8 parameter bytes per token, for k and for v, per kv head) -- about
-//   4.7 MB per Llama-3-8B layer at B=8, fill 512.
-// Design: int4_attention.cuh, one block per (b, kv head), 128-token tiles (a
-//   page is a multiple of 128, so a tile never straddles pages).  Rows of
-//   length 0 (idle engine slots) all point at the engine's null page and
-//   write its column 0 concurrently: a benign race, since no row ever reads
-//   that page.  First version: no split over tiles, so B*Hkv blocks only.
+// Replaces: rsq_tpu/kernels/paged_kv.py
+//   - int4_paged_decode_attention_self_append (:463) -- both its grid kernel
+//     _paged_kernel_self_append (:388) and its one-grid-step twin
+//     _paged_kernel_self_append_flat (:580), which compute the same function
+//     (the split exists only for TPU grid-step overhead): row 19 (and 20);
+//   - int4_paged_decode_attention_stacked (:283), Pallas body
+//     _paged_kernel_fast, and through its L = 1 view
+//     int4_paged_decode_attention (:262): row 17;
+//   - paged_append_pool (:801), Pallas body _paged_append_kernel (:776):
+//     row 21.
+// Computes:
+//   self_append: int4_attention.cuh's body over row b's cached tokens, found
+//     through the page table; the new token goes to
+//     (layer, ptab[b, len // page], h, :, len % page).  Pages are multiples
+//     of 128 here, as in the reference.
+//   read_only: the same tile loop, no self term, no write: out (B, Hq, D)
+//     bf16.  Any page size: a 128-token tile straddles up to 128 / page
+//     pages, and each token is found through the table on its own.  A row
+//     of length 0 gives out NaN (0/0); the serving path appends first, so
+//     it never reads one.
+//   append: one token per row b into (layer, ptab[b, pos // page], h, :,
+//     pos % page) of the code and parameter pools, in place, exactly that
+//     column (the reference's kernel rewrites its whole window; two rows
+//     appending into one page at different lanes cannot lose a write here).
+// Bound on this card: attention, the pool bytes of the cached tokens (D/2
+//   code bytes plus 8 parameter bytes per token, for k and for v, per kv
+//   head) -- about 4.7 MB per Llama-3-8B layer at B=8, fill 512; the append,
+//   its 2 * B * Hkv * (D/2 + 8) bytes written, so launch latency.
+// Design: int4_attention.cuh, one block per (b, kv head), 128-token tiles.
+//   The append runs one thread per written element.  Rows of length 0 (idle
+//   engine slots) all point at the engine's null page and write its column 0
+//   concurrently: a benign race, since no row ever reads that page's content
+//   for a live token.  First version: no split over tiles, so B*Hkv blocks
+//   only.
 
 #include "int4_attention.cuh"
 
@@ -52,6 +71,48 @@ paged_attn_self_append(int4_attention::Args a, const int32_t* __restrict__ ptab,
   int4_attention::self_append(a, at, b, h);
 }
 
+__global__ void __launch_bounds__(int4_attention::T)
+paged_attn_read_only(int4_attention::Args a, const int32_t* __restrict__ ptab,
+                     int layer, int P, int page, int NP) {
+  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+  const PagedAddr at{ptab + (size_t)b * NP, layer, P, a.Hkv, h, a.D / 2, page,
+                     NP};
+  int4_attention::read_only(a, at, b, h);
+}
+
+constexpr int APPEND_THREADS = 256;
+
+// Thread i writes one element: k then v; per (b, h) the D/2 code bytes,
+// then the two parameters.
+__global__ void __launch_bounds__(APPEND_THREADS)
+paged_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
+             uint8_t* __restrict__ vq, float* __restrict__ vp,
+             const int32_t* __restrict__ ptab, const int32_t* __restrict__ pos,
+             const uint8_t* __restrict__ nkq, const float* __restrict__ nkp,
+             const uint8_t* __restrict__ nvq, const float* __restrict__ nvp,
+             int B, int layer, int P, int H, int D2, int page, int NP) {
+  const int per_head = D2 + 2;
+  const int per_kv = B * H * per_head;
+  int i = blockIdx.x * APPEND_THREADS + threadIdx.x;
+  if (i >= 2 * per_kv) return;
+  const bool is_v = i >= per_kv;
+  i -= is_v ? per_kv : 0;
+  const int bh = i / per_head, x = i % per_head;
+  const int b = bh / H, h = bh % H;
+  const int p = pos[b];
+  const int pid = ptab[(size_t)b * NP + min(p / page, NP - 1)];
+  const size_t head = ((size_t)layer * P + pid) * H + h;
+  const int col = p % page;
+  if (x < D2) {
+    (is_v ? vq : kq)[(head * D2 + x) * page + col] =
+        (is_v ? nvq : nkq)[(size_t)bh * D2 + x];
+  } else {
+    const int j = x - D2;
+    (is_v ? vp : kp)[(head * 2 + j) * page + col] =
+        (is_v ? nvp : nkp)[(size_t)bh * 2 + j];
+  }
+}
+
 }  // namespace
 
 extern "C" int paged_attention_self_append_launch(
@@ -60,16 +121,40 @@ extern "C" int paged_attention_self_append_launch(
     const void* nkq, const void* nkp, const void* nvq, const void* nvp,
     void* out, int B, int layer, int P, int Hkv, int G, int D, int page,
     int NP, float sm_scale, int int8_qk, float inv127, void* stream) {
-  const int4_attention::Args a{
-      static_cast<const __nv_bfloat16*>(q), static_cast<uint8_t*>(kq),
-      static_cast<float*>(kp), static_cast<uint8_t*>(vq),
-      static_cast<float*>(vp), static_cast<const int32_t*>(lengths),
-      static_cast<const float*>(k_self), static_cast<const float*>(v_self),
-      static_cast<const uint8_t*>(nkq), static_cast<const float*>(nkp),
-      static_cast<const uint8_t*>(nvq), static_cast<const float*>(nvp),
-      static_cast<__nv_bfloat16*>(out), Hkv, G, D, sm_scale, int8_qk, inv127};
+  const int4_attention::Args a = int4_attention::self_args(
+      q, kq, kp, vq, vp, lengths, k_self, v_self, nkq, nkp, nvq, nvp, out,
+      Hkv, G, D, sm_scale, int8_qk, inv127);
   paged_attn_self_append<<<B * Hkv, int4_attention::T, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int paged_attention_read_only_launch(
+    const void* q, const void* kq, const void* kp, const void* vq,
+    const void* vp, const void* ptab, const void* lengths, void* out, int B,
+    int layer, int P, int Hkv, int G, int D, int page, int NP, float sm_scale,
+    int int8_qk, float inv127, void* stream) {
+  const int4_attention::Args a = int4_attention::make_args(
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
+  paged_attn_read_only<<<B * Hkv, int4_attention::T, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int paged_append_pool_launch(
+    void* kq, void* kp, void* vq, void* vp, const void* ptab, const void* pos,
+    const void* nkq, const void* nkp, const void* nvq, const void* nvp, int B,
+    int layer, int P, int H, int D2, int page, int NP, void* stream) {
+  const int n = 2 * B * H * (D2 + 2);
+  paged_append<<<(n + APPEND_THREADS - 1) / APPEND_THREADS, APPEND_THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(kq), static_cast<float*>(kp),
+      static_cast<uint8_t*>(vq), static_cast<float*>(vp),
+      static_cast<const int32_t*>(ptab), static_cast<const int32_t*>(pos),
+      static_cast<const uint8_t*>(nkq), static_cast<const float*>(nkp),
+      static_cast<const uint8_t*>(nvq), static_cast<const float*>(nvp), B,
+      layer, P, H, D2, page, NP);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,10 @@
 //   - w4_affine_matmul_stacked (:747), body _w4_affine_kernel_pref (:712):
 //     the per-tensor scale with the +0.5 rank-1 term (E8P re-encoded);
 //   - w4_matmul (:143), body _w4_matmul_kernel (:122): the int4 lm_head,
-//     through an L = 1 view and the paired scale.
+//     through an L = 1 view and the paired scale;
+//   - on L = 1 views of unstacked weights, w4_matmul_paired (:190, the
+//     paired scale) and w4_affine_matmul (:269, body _w4_affine_kernel
+//     :246, the affine epilogue).
 // Computes: acc[m, p, j] = sum_k x[m, k] * q_p(w[k, j]) for bf16 x (M, K)
 //   and the layer's packed bytes w (K, Nh), read in place: byte (k, j)
 //   holds q_0 in its low nibble and q_1 in its high nibble, two's-complement

@@ -1,7 +1,10 @@
 // W4A4 matmul against one layer of stacked plane-major INT4 weights.
 //
 // Replaces: rsq_tpu/kernels/matmul_w4.py w4a4_matmul_paired_stacked (:559),
-//   Pallas body _w4a4_kernel_i8_pref (:523).
+//   Pallas body _w4a4_kernel_i8_pref (:523); and, on an L = 1 view of
+//   unstacked weights, w4a4_matmul_paired (:458) with both of its bodies,
+//   _w4a4_kernel_i8 (:369, decode) and _w4a4_kernel (:401, bf16, prefill):
+//   all three sum the same integer products exactly.
 // Computes: xq = clip(rint(x * (1/xs)), -8, 7) per row (xs = per-token
 //   absmax*clip/7, computed by the caller), acc = xq . W (exact int32),
 //   out[m, p, j] = bf16(float(acc) * xs[m] * scale2[p, j]).

@@ -14,7 +14,10 @@ KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
            "int4_decode_attention_self_append",
            "bf16_decode_attention_stacked", "kv_append_stacked_bf16",
            "w16_matmul_stacked", "w4_matmul_paired_stacked",
-           "w4_affine_matmul_stacked", "w4_matmul")
+           "w4_affine_matmul_stacked", "w4_matmul", "w4a4_matmul_paired",
+           "w4_matmul_paired", "w4_affine_matmul",
+           "int4_decode_attention_stacked",
+           "int4_paged_decode_attention_stacked", "paged_append_pool")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -9,7 +9,9 @@ The bf16 cache is token-major: (L, B, Hkv, S, D).
 
 Kernels, each with its plain version here:
 - decode_prep (csrc/decode_prep.cu)
-- int4_decode_attention_self_append (csrc/contiguous_attention.cu)
+- int4_decode_attention_self_append and int4_decode_attention_stacked
+  (read-only, with its L = 1 view int4_decode_attention)
+  (csrc/contiguous_attention.cu)
 - bf16_decode_attention_stacked, kv_append_stacked_bf16
   (csrc/bf16_attention.cu)
 attend_tile / self_fold_finalize are the plain math of both INT4 attention
@@ -238,6 +240,42 @@ def merge_self_attention(out_old, m_old, l_old, q_scaled, k_self, v_self):
 
 
 # ---------------------------------------------------------------------------
+# Checks shared by the four INT4 attention wrappers (contiguous and paged)
+# ---------------------------------------------------------------------------
+
+def check_int4_attention(q, kq_all, kp_all, vq_all, vp_all, layer: int):
+    """q (B, Hq, D) bf16 against stacked codes (L, R, Hkv, D/2, S) u8 and
+    params (L, R, Hkv, 2, S) f32, R the cache's slots or the pool's pages.
+    Returns (B, Hq, D, (L, R, Hkv, D/2, S))."""
+    require(q.dim() == 3 and kq_all.dim() == 5, "q (B, Hq, D), caches 5-D")
+    B, Hq, D = q.shape
+    L, R, Hkv, D2, S = kq_all.shape
+    require(D == 2 * D2 and Hq % Hkv == 0, "head shapes disagree")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(q.dtype == torch.bfloat16, "q must be bf16")
+    require(kq_all.dtype == torch.uint8 and vq_all.dtype == torch.uint8
+            and kp_all.dtype == torch.float32 and vp_all.dtype == torch.float32,
+            "cache dtypes: u8 codes, f32 params")
+    require(kp_all.shape == (L, R, Hkv, 2, S) and vq_all.shape == kq_all.shape
+            and vp_all.shape == kp_all.shape, "cache shapes disagree")
+    return B, Hq, D, kq_all.shape
+
+
+def kernel_operands(q, caches, sm_scale):
+    """What every INT4 attention kernel needs besides the checks above:
+    head_dim <= 128 and G <= 8, caches read (and written) in place, so
+    contiguous.  Returns (q contiguous, G, sm_scale, 1/sqrt(D) by
+    default)."""
+    _, Hq, D = q.shape
+    G = Hq // caches[0].shape[2]
+    require(D <= 128 and G <= 8, "kernel needs head_dim <= 128, Hq/Hkv <= 8")
+    require(all(t.is_contiguous() for t in caches),
+            "caches must be contiguous (the kernel addresses them in place)")
+    return (q.contiguous(), G,
+            1.0 / math.sqrt(D) if sm_scale is None else sm_scale)
+
+
+# ---------------------------------------------------------------------------
 # Contiguous INT4 attention with self fold and in-place append
 # ---------------------------------------------------------------------------
 
@@ -278,18 +316,9 @@ def int4_decode_attention_self_append(q, kq_all, kp_all, vq_all, vp_all,
     out (B, Hq, D) bf16.  The reference also copies stale lanes into a
     freshly opened 512-chunk past the length; the port writes only the
     new column."""
-    require(q.dim() == 3 and kq_all.dim() == 5, "q (B, Hq, D), caches 5-D")
-    B, Hq, D = q.shape
-    L, Bc, Hkv, D2, S = kq_all.shape
-    require(Bc == B and D == 2 * D2 and Hq % Hkv == 0, "head shapes disagree")
-    require(0 <= layer < L, f"layer {layer} out of range {L}")
-    require(lengths.shape == (B,), "lengths (B,)")
-    require(q.dtype == torch.bfloat16, "q must be bf16")
-    require(kq_all.dtype == torch.uint8 and vq_all.dtype == torch.uint8
-            and kp_all.dtype == torch.float32 and vp_all.dtype == torch.float32,
-            "cache dtypes: u8 codes, f32 params")
-    require(kp_all.shape == (L, B, Hkv, 2, S) and vq_all.shape == kq_all.shape
-            and vp_all.shape == kp_all.shape, "cache shapes disagree")
+    B, Hq, D, (L, Bc, Hkv, D2, S) = check_int4_attention(
+        q, kq_all, kp_all, vq_all, vp_all, layer)
+    require(Bc == B and lengths.shape == (B,), "cache slots, lengths (B,)")
     require(nkq.shape == (B, Hkv, D2) and nkp.shape == (B, Hkv, 2)
             and k_self.shape == (B, Hkv, D), "new-token shapes")
     tensors = (q, kq_all, kp_all, vq_all, vp_all, lengths, k_self, v_self,
@@ -298,13 +327,8 @@ def int4_decode_attention_self_append(q, kq_all, kp_all, vq_all, vp_all,
         return self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
                                  lengths, k_self, v_self, nkq, nkp, nvq, nvp,
                                  sm_scale=sm_scale, int8_qk=int8_qk)
-    G = Hq // Hkv
-    require(D <= 128 and G <= 8, "kernel needs head_dim <= 128, Hq/Hkv <= 8")
-    require(all(t.is_contiguous() for t in (kq_all, kp_all, vq_all, vp_all)),
-            "caches must be contiguous (they are updated in place)")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    q = q.contiguous()
+    q, G, sm_scale = kernel_operands(q, (kq_all, kp_all, vq_all, vp_all),
+                                     sm_scale)
     lens = lengths.to(torch.int32).contiguous()
     k_self, v_self = k_self.float().contiguous(), v_self.float().contiguous()
     nkq, nvq = nkq.contiguous(), nvq.contiguous()
@@ -321,6 +345,75 @@ def int4_decode_attention_self_append(q, kq_all, kp_all, vq_all, vp_all,
     cuda_build.check(rc, "int4_decode_attention_self_append")
     LAUNCHES["int4_decode_attention_self_append"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Contiguous INT4 attention, read-only, returning (out, m, l)
+# ---------------------------------------------------------------------------
+
+def finalize_read(q, state):
+    """(m, l, acc) of attend_tile -> (out (B, Hq, D) in q's dtype, m, l
+    (B, Hkv, G) f32): out = acc / l, one rounding.  A row that read no
+    token keeps m = -inf, l = 0 and gives out = 0/0."""
+    m, l, acc = state
+    out = (acc / l).to(q.dtype).reshape(q.shape)
+    return out, m[..., 0], l[..., 0]
+
+
+def decode_attention_plain(q, kq_all, kp_all, vq_all, vp_all, layer, lengths,
+                           sm_scale=None, int8_qk=False):
+    """Plain PyTorch version of int4_decode_attention_stacked: one
+    attend_tile over the row's whole cache."""
+    B, _, D = q.shape
+    Hkv = kq_all.shape[2]
+    qg = q_groups(q, Hkv, sm_scale)
+    state = attend_tile(qg, kq_all[layer], kp_all[layer], vq_all[layer],
+                        vp_all[layer], 0, lengths.to(torch.int64),
+                        empty_state(B, Hkv, qg.shape[2], D, q.device),
+                        int8_qk=int8_qk)
+    return finalize_read(q, state)
+
+
+def int4_decode_attention_stacked(q, kq_all, kp_all, vq_all, vp_all,
+                                  layer: int, lengths, sm_scale=None,
+                                  int8_qk: bool = False):
+    """Decode attention against layer `layer` of the stacked contiguous
+    INT4 cache (L, B, Hkv, D/2, S) u8 + (L, B, Hkv, 2, S) f32, read in place
+    and never written, over the lengths[b] cached tokens.  q: (B, Hq, D)
+    bf16, already per-head Hadamard-rotated like the keys.  Returns (out
+    (B, Hq, D) bf16, m (B, Hkv, G) f32, l (B, Hkv, G) f32), the online-
+    softmax state.  A row of length 0 gives out NaN, m -inf, l 0."""
+    B, Hq, D, (L, Bc, Hkv, D2, S) = check_int4_attention(
+        q, kq_all, kp_all, vq_all, vp_all, layer)
+    require(Bc == B and lengths.shape == (B,), "cache slots, lengths (B,)")
+    if not on_cuda((q, kq_all, kp_all, vq_all, vp_all, lengths)):
+        return decode_attention_plain(q, kq_all, kp_all, vq_all, vp_all,
+                                      layer, lengths, sm_scale, int8_qk)
+    q, G, sm_scale = kernel_operands(q, (kq_all, kp_all, vq_all, vp_all),
+                                     sm_scale)
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = cuda_build.function(
+        "contiguous_attention", "contiguous_attention_read_only_launch",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
+            ptr(lens), ptr(out), ptr(m), ptr(l), B, layer, Hkv, G, D, S,
+            sm_scale, int(int8_qk), recip_f32(127.0), stream(q))
+    cuda_build.check(rc, "int4_decode_attention_stacked")
+    LAUNCHES["int4_decode_attention_stacked"] += 1
+    return out, m, l
+
+
+def int4_decode_attention(q, kq, kp, vq, vp, lengths, sm_scale=None):
+    """One layer's cache (B, Hkv, D/2, S) + (B, Hkv, 2, S): the stacked
+    function on the L = 1 view (no copy), default QK (bf16 q, f32 sums).
+    Returns out (B, Hq, D) bf16."""
+    return int4_decode_attention_stacked(q, kq[None], kp[None], vq[None],
+                                         vp[None], 0, lengths,
+                                         sm_scale=sm_scale)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,16 @@ where byte (k, g*P + j) holds outputs (k, g*2P + j) [low nibble] and
 (k, g*2P + P + j) [high nibble], P = PACK_GROUP/2.
 
 Kernels, each with its plain PyTorch version beside it:
-- w4a4_matmul_paired_stacked: csrc/w4a4_matmul.cu
-- w4_matmul_paired_stacked, w4_affine_matmul_stacked and w4_matmul (the
-  int4 lm_head): csrc/w4_matmul.cu, one kernel with two epilogues
+- w4a4_matmul_paired_stacked and, on an L = 1 view of unstacked weights,
+  w4a4_matmul_paired (w4a4_matmul un-pairs it): csrc/w4a4_matmul.cu
+- w4_matmul_paired_stacked, w4_affine_matmul_stacked and, on L = 1 views,
+  w4_matmul_paired, w4_affine_matmul and w4_matmul (the int4 lm_head):
+  csrc/w4_matmul.cu, one kernel with two epilogues
 - w16_matmul_stacked: csrc/w16_matmul.cu
 - w8_matmul: csrc/w8_matmul.cu
+The unstacked functions take the reference's `decode` (and W4A4's
+`mxu_int8`) hints and ignore them: they pick the TPU kernel's tiles and
+MXU path, and the port's kernels size their launch from M themselves.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import ctypes
 
 import torch
 
-from rsq_tpu_torch.core.numerics import div, div_const
+from rsq_tpu_torch.core.numerics import div, mul_div_const
 from rsq_tpu_torch.kernels import LAUNCHES, cuda_build, on_cuda, ptr, require, stream
 
 
@@ -86,9 +91,10 @@ def w8_quantize(w: torch.Tensor, axis: int = 0):
 
 
 def token_scales(x: torch.Tensor, clip_ratio: float = 1.0) -> torch.Tensor:
-    """Per-token activation scale (M, 1) f32: absmax*clip/7, 1 where 0."""
+    """Per-token activation scale (M, 1) f32: absmax*clip/7, 1 where 0,
+    rounded as the jitted reference rounds it (one folded constant)."""
     absmax = x.float().abs().amax(dim=1, keepdim=True)
-    return torch.where(absmax == 0, 1.0, div_const(absmax * clip_ratio, 7.0))
+    return torch.where(absmax == 0, 1.0, mul_div_const(absmax, clip_ratio, 7.0))
 
 
 def _split_k(blocks: int, K: int):
@@ -119,7 +125,12 @@ def w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs):
     return (acc * xs[:, :, None] * scale2).to(torch.bfloat16)
 
 
-def _w4a4_launch(x, wp_all, scale2, layer, xs):
+def _w4a4_launch(x, wp_all, scale2, layer, xs, name):
+    """Launch csrc/w4a4_matmul.cu on layer `layer` of wp_all, read in place;
+    counts one launch of `name`."""
+    require(x.shape[1] % 4 == 0 and wp_all.shape[2] % 4 == 0,
+            "kernel needs K % 4 == 0, Nh % 4 == 0")
+    require(x.is_contiguous() and wp_all.is_contiguous(), "contiguous inputs")
     fn = cuda_build.function(
         "w4a4_matmul", "w4a4_matmul_paired_stacked_launch",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -132,8 +143,8 @@ def _w4a4_launch(x, wp_all, scale2, layer, xs):
     wl = wp_all[layer]
     rc = fn(ptr(x), ptr(xs), ptr(wl), ptr(scale2), ptr(acc), ptr(out),
             M, K, Nh, kchunk, stream(x))
-    cuda_build.check(rc, "w4a4_matmul_paired_stacked")
-    LAUNCHES["w4a4_matmul_paired_stacked"] += 1
+    cuda_build.check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -158,10 +169,51 @@ def w4a4_matmul_paired_stacked(x, wp_all, scale2, layer: int,
     xs = token_scales(x, clip_ratio)
     if not on_cuda((x, wp_all, scale2)):
         return w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs)
-    require(K % 4 == 0 and Nh % 4 == 0, "kernel needs K % 4 == 0, Nh % 4 == 0")
-    require(x.is_contiguous() and wp_all.is_contiguous(), "contiguous inputs")
     return _w4a4_launch(x, wp_all, scale2.contiguous(), layer,
-                        xs.reshape(M).contiguous())
+                        xs.reshape(M).contiguous(),
+                        "w4a4_matmul_paired_stacked")
+
+
+def w4a4_matmul_paired_plain(x, w_packed, scale2, xs):
+    """Plain PyTorch version of w4a4_matmul_paired (xs: (M, 1) f32)."""
+    return w4a4_matmul_paired_stacked_plain(x, w_packed[None], scale2, 0, xs)
+
+
+def w4a4_matmul_paired(x, w_packed, scale2, token_scale=None, *,
+                       clip_ratio: float = 1.0, decode=None, mxu_int8=None):
+    """W4A4 matmul against unstacked packed weights w_packed (K, Nh) uint8,
+    paired scales scale2 (2, Nh) f32: (M, 2, Nh) bf16 for x (M, K) bf16.
+    The per-token scale is absmax*clip/7 of each row of x, or token_scale
+    (M, 1) when given (the reference passes the tensor-parallel global
+    absmax there).  The TPU kernel has an int8 body for decode and a bf16
+    one for prefill; both sum the same integer products exactly, so the one
+    CUDA kernel (row 12's, on the L = 1 view w_packed[None], no copy)
+    reproduces both: `decode` and `mxu_int8` change nothing here."""
+    require(x.dim() == 2 and w_packed.dim() == 2, "x (M, K), w_packed (K, Nh)")
+    M, K = x.shape
+    Kw, Nh = w_packed.shape
+    require(K == Kw, f"K mismatch {K} vs {Kw}")
+    require(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
+    require(w_packed.dtype == torch.uint8, "w_packed must be uint8")
+    require(scale2.shape == (2, Nh) and scale2.dtype == torch.float32,
+            f"scale2 must be (2, {Nh}) f32")
+    if token_scale is None:
+        xs = token_scales(x, clip_ratio)
+    else:
+        xs = token_scale.float().reshape(M, 1)
+    if not on_cuda((x, w_packed, scale2, xs)):
+        return w4a4_matmul_paired_plain(x, w_packed, scale2, xs)
+    return _w4a4_launch(x.contiguous(), w_packed[None], scale2.contiguous(),
+                        0, xs.reshape(M).contiguous(), "w4a4_matmul_paired")
+
+
+def w4a4_matmul(x, w_packed, scale, token_scale=None, *,
+                clip_ratio: float = 1.0, decode=None, mxu_int8=None):
+    """W4A4 matmul against adjacent-planar packed weights (K, N/2) with
+    per-column scales (N,): w4a4_matmul_paired on the paired scales, the
+    output un-paired to (M, N) bf16."""
+    return unpair_outputs(w4a4_matmul_paired(
+        x, w_packed, pair_scales(scale), token_scale, clip_ratio=clip_ratio))
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +289,27 @@ def w4_matmul_paired_stacked(x, wp_all, scale2, layer: int):
     return out
 
 
+def w4_matmul_paired_plain(x, w_packed, scale2):
+    """Plain PyTorch version of w4_matmul_paired."""
+    return w4_matmul_paired_stacked_plain(x, w_packed[None], scale2, 0)
+
+
+def w4_matmul_paired(x, w_packed, scale2, *, decode=None):
+    """Weight-only W4 matmul against unstacked packed weights w_packed
+    (K, Nh) uint8 with paired scales scale2 (2, Nh) f32: the plane-paired
+    (M, 2, Nh) output in x's dtype.  Row 13's kernel on the L = 1 view
+    (read in place, any even N, no padding)."""
+    require(w_packed.dim() == 2, "w_packed (K, Nh)")
+    Nh = _w4_check(x, w_packed[None], 0)
+    require(scale2.shape == (2, Nh) and scale2.dtype == torch.float32,
+            f"scale2 must be (2, {Nh}) f32")
+    if not on_cuda((x, w_packed, scale2)):
+        return w4_matmul_paired_plain(x, w_packed, scale2)
+    out = _w4_launch(x, w_packed, scale2.contiguous(), None)
+    LAUNCHES["w4_matmul_paired"] += 1
+    return out
+
+
 def row_sums(x):
     """The affine kernel's rank-1 operand: f32 row sums of x, (M,)."""
     return torch.sum(x, dim=1, dtype=torch.float32)
@@ -275,6 +348,32 @@ def w4_affine_matmul_stacked(x, wp_all, sh_all, layer: int,
     else:
         y3 = _w4_launch(x, wp_all[layer], sh_all[layer], xsum)
         LAUNCHES["w4_affine_matmul_stacked"] += 1
+    return y3.reshape(y3.shape[0], 2 * Nh) if plane_major else unpair_outputs(y3)
+
+
+def w4_affine_matmul_plain(x, w_packed, sh, xsum=None):
+    """Plain PyTorch version of w4_affine_matmul, plane-paired (M, 2, Nh)."""
+    return w4_affine_matmul_stacked_plain(x, w_packed[None], sh.reshape(1), 0,
+                                          xsum)
+
+
+def w4_affine_matmul(x, w_packed, sh, *, decode=None, plane_major: bool = False):
+    """y = x @ ((unpack(W) + 0.5) * sh) against unstacked packed weights
+    w_packed (K, Nh) with the per-tensor scale sh (a 0-d f32 tensor, read
+    by the kernel from device memory): row 14's kernel on the L = 1 view.
+    The row sums of the rank-1 term are taken in f32 here, as the
+    reference does outside its kernel.  Returns (M, 2 * Nh) in x's dtype,
+    un-paired by a reshape (plane_major) or the adjacent interleave."""
+    require(w_packed.dim() == 2, "w_packed (K, Nh)")
+    Nh = _w4_check(x, w_packed[None], 0)
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=w_packed.device)
+    require(sh.numel() == 1, "sh must be one per-tensor scale")
+    xsum = row_sums(x)
+    if not on_cuda((x, w_packed, sh)):
+        y3 = w4_affine_matmul_plain(x, w_packed, sh, xsum)
+    else:
+        y3 = _w4_launch(x, w_packed, sh.reshape(()).contiguous(), xsum)
+        LAUNCHES["w4_affine_matmul"] += 1
     return y3.reshape(y3.shape[0], 2 * Nh) if plane_major else unpair_outputs(y3)
 
 

@@ -10,11 +10,16 @@ immutable while shared: appends only touch pages past the owner's prompt.
 Prefill is plain PyTorch around the linear and lm_head kernels; each
 decode step runs, per layer, the qkv linear(s) -> decode_prep -> paged
 attention with in-place append -> o -> up/gate -> down, then the lm_head.
-Params may be fused (fuse_for_decode: qkv, upgate) or unfused (q, k, v,
-up, gate): W4A4, weight-only W4 (a4=False), E8P re-encoded to affine int4,
-or dense bf16, as serving/model._linear_fast dispatches them.  Pages must
-hold a multiple of 128 tokens: smaller pages need the reference's separate
-append and read-only paged kernels, not ported yet.
+With pages under 128 tokens the step runs, as the reference does, the
+pool append kernel and then the read-only paged attention over the
+lengths + 1 tokens instead of the self-appending kernel (and, as there,
+without attn_int8_qk).  A page of 128 tokens or more must be a multiple of
+128.  Params may be fused (fuse_for_decode: qkv, upgate) or unfused (q, k,
+v, up, gate): W4A4, weight-only W4 (a4=False), E8P re-encoded to affine
+int4, or dense bf16, as serving/model._linear_fast dispatches them.
+
+prefill_paged and decode_step_paged are the reference's per-layer oracles
+on unstacked params["layers"] (serving/model.serving_linear).
 """
 
 from __future__ import annotations
@@ -27,11 +32,14 @@ import torch
 from rsq_tpu_torch import resolve_device
 from rsq_tpu_torch.core.hadamard import hadamard_transform_last
 from rsq_tpu_torch.kernels import paged_kv as PKV
-from rsq_tpu_torch.kernels.kv_cache import decode_prep, unpack_dequant_head
+from rsq_tpu_torch.kernels.kv_cache import (asym_quant_pack_head,
+                                            decode_prep, to_lane_major,
+                                            unpack_dequant_head)
 from rsq_tpu_torch.models import llama as M
-from rsq_tpu_torch.serving.model import (ServingConfig, _fast_path_helpers,
-                                         _sl, attn_out_fast, lm_head_logits,
-                                         mlp_fast, qkv_fast,
+from rsq_tpu_torch.serving.model import (ServingConfig, _attn_out,
+                                         _fast_path_helpers, _last_logits,
+                                         _mlp, _qkv, _sl, attn_out_fast,
+                                         lm_head_logits, mlp_fast, qkv_fast,
                                          stack_layer_params)
 from rsq_tpu_torch.serving.native import PyPageAllocator
 
@@ -54,11 +62,12 @@ def prefix_hashes(token_ids: np.ndarray, page_size: int) -> list[int]:
 
 
 def _check_page(page: int) -> None:
-    if page < 128 or page % 128:
+    """Mirrors the reference's refusal (kernels/paged_kv.py:818-819): any
+    page under 128 tokens, else a multiple of 128."""
+    if page < 1 or (page >= 128 and page % 128):
         raise ValueError(
-            f"page size {page}: the port needs pages that are a multiple of "
-            "128 tokens; smaller pages need the reference's separate append "
-            "and read-only paged attention kernels, which are not ported yet")
+            f"page size {page}: pages of 128 tokens or more must be a "
+            "multiple of 128 (as in the reference)")
 
 
 def _pool_write_pages(pool, layer: int, page_ids, kq, kp, vq, vp):
@@ -70,6 +79,17 @@ def _pool_write_pages(pool, layer: int, page_ids, kq, kp, vq, vp):
         arr = pool[name]
         for j, pid in enumerate(page_ids):
             arr[layer, pid] = val[..., j * page:(j + 1) * page]
+
+
+def _pool_append_token(pool, layer: int, page_table, positions, kq, kp, vq,
+                       vp):
+    """Append one token per row in place: kq/vq (B, H, D/2, 1), kp/vp
+    (B, H, 2, 1) at page page_table[b, pos // page], lane pos % page (the
+    reference's dynamic_update_slices; plain indexing, no kernel)."""
+    PKV.paged_append_plain(pool["kq"], pool["kp"], pool["vq"], pool["vp"],
+                           layer, page_table, positions, kq[..., 0],
+                           kp[..., 0], vq[..., 0], vp[..., 0])
+    return pool
 
 
 def _gather_layer_prefix(pool, layer: int, page_ids):
@@ -103,39 +123,19 @@ def _prefill_paged_local(params, pool, page_row, input_tail,
     hd = cfg.head_dim_
     nq, nkv, mix_heads, mix_act = _fast_path_helpers(cfg)
     nrep = nq // nkv
-    dev = input_tail.device
-    row = [int(p) for p in page_row]
-    tail_ids = row[prefix_pages:prefix_pages + st // page]
+    row, tail_ids, cos, sin, mask = _tail_setup(page_row, input_tail, cfg,
+                                                page, prefix_pages, prefix_len)
 
     x = params["embed"][input_tail].to(torch.bfloat16)
-    positions = prefix_len + torch.arange(st, device=dev)
-    cos, sin = M.rope_tables(cfg, positions)
-    kpos = torch.arange(prefix_len + st, device=dev)[None, :]
-    mask = torch.where(kpos <= positions[:, None], 0.0, -1e30).float()
 
     for i in range(L):
         h = M.rms_norm(x, _sl(ls.get("input_norm"), i), cfg.rms_norm_eps)
         q, k, v = qkv_fast(ls, h.reshape(st, -1), i, sc)
         q = M.apply_rope(q.reshape(1, st, nq, hd), cos, sin)
         k = M.apply_rope(k.reshape(1, st, nkv, hd), cos, sin)
-        v = v.reshape(1, st, nkv, hd)
-        kb, vb = k.transpose(1, 2), v.transpose(1, 2)        # (1, H, St, D)
-        kq_, kp_ = PKV.quantize_prompt(kb, hadamard=sc.kv_hadamard)
-        vq_, vp_ = PKV.quantize_prompt(vb, hadamard=False)
-        _pool_write_pages(pool, i, tail_ids, kq_[0], kp_[0], vq_[0], vp_[0])
-        if prefix_pages:
-            qr, kr = q.transpose(1, 2), kb
-            if sc.kv_hadamard:
-                qr, kr = hadamard_transform_last(qr), hadamard_transform_last(kr)
-            qr, kr = qr.transpose(1, 2), kr.transpose(1, 2)
-            pk, pv = _gather_layer_prefix(pool, i, row[:prefix_pages])
-            keys = torch.cat([pk.to(qr.dtype), kr.to(qr.dtype)], dim=1)
-            vals = torch.cat([pv.to(qr.dtype), v.to(qr.dtype)], dim=1)
-            attn = M.attention(qr, M.repeat_kv(keys, nrep),
-                               M.repeat_kv(vals, nrep), mask)
-        else:
-            attn = M.attention(q, M.repeat_kv(k, nrep), M.repeat_kv(v, nrep),
-                               mask[:, prefix_len:])
+        attn = _tail_attention(pool, i, row, tail_ids, prefix_pages,
+                               prefix_len, q, k, v.reshape(1, st, nkv, hd),
+                               mask, sc, nrep)
         x = attn_out_fast(ls, i, x, attn.reshape(1, st, nq * hd), sc,
                           mix_heads)
         x = mlp_fast(ls, i, x, cfg, sc, mix_act)
@@ -144,6 +144,74 @@ def _prefill_paged_local(params, pool, page_row, input_tail,
     x = M.rms_norm(x[:, last:last + 1], params.get("final_norm"),
                    cfg.rms_norm_eps)
     return lm_head_logits(params, x)[:, 0], pool
+
+
+def _tail_attention(pool, layer: int, row, tail_ids, prefix_pages: int,
+                    prefix_len: int, q, k, v, mask, sc: ServingConfig,
+                    nrep: int):
+    """One layer of a paged prefill after its projections: write the tail's
+    quantized K/V pages in place, then attend [cached prefix ++ tail] (the
+    prefix dequantized from the pool, in the Hadamard basis).  q, k, v:
+    (1, St, H, D) post-rope."""
+    kb, vb = k.transpose(1, 2), v.transpose(1, 2)            # (1, H, St, D)
+    kq_, kp_ = PKV.quantize_prompt(kb, hadamard=sc.kv_hadamard)
+    vq_, vp_ = PKV.quantize_prompt(vb, hadamard=False)
+    _pool_write_pages(pool, layer, tail_ids, kq_[0], kp_[0], vq_[0], vp_[0])
+    if not prefix_pages:
+        return M.attention(q, M.repeat_kv(k, nrep), M.repeat_kv(v, nrep),
+                           mask[:, prefix_len:])
+    qr, kr = q.transpose(1, 2), kb
+    if sc.kv_hadamard:
+        qr, kr = hadamard_transform_last(qr), hadamard_transform_last(kr)
+    qr, kr = qr.transpose(1, 2), kr.transpose(1, 2)
+    pk, pv = _gather_layer_prefix(pool, layer, row[:prefix_pages])
+    keys = torch.cat([pk.to(qr.dtype), kr.to(qr.dtype)], dim=1)
+    vals = torch.cat([pv.to(qr.dtype), v.to(qr.dtype)], dim=1)
+    return M.attention(qr, M.repeat_kv(keys, nrep), M.repeat_kv(vals, nrep),
+                       mask)
+
+
+def _tail_setup(page_row, input_tail, cfg, page: int, prefix_pages: int,
+                prefix_len: int):
+    """(row, tail page ids, rope cos/sin, causal mask over [prefix ++ tail])
+    of a paged prefill."""
+    st = input_tail.shape[1]
+    dev = input_tail.device
+    row = [int(p) for p in page_row]
+    tail_ids = row[prefix_pages:prefix_pages + st // page]
+    positions = prefix_len + torch.arange(st, device=dev)
+    cos, sin = M.rope_tables(cfg, positions)
+    kpos = torch.arange(prefix_len + st, device=dev)[None, :]
+    mask = torch.where(kpos <= positions[:, None], 0.0, -1e30).float()
+    return row, tail_ids, cos, sin, mask
+
+
+@torch.no_grad()
+def prefill_paged(params, pool, page_row, input_tail, sc: ServingConfig,
+                  prefix_pages: int, prefix_len: int, prompt_len: int):
+    """The reference's per-layer paged prefill on unstacked params["layers"]
+    (serving_linear): the prompt tail after the cached prefix, its pages
+    written in place.  Returns (last-token logits (V,), pool)."""
+    cfg = sc.cfg
+    if not sc.kv_int4:
+        raise NotImplementedError("paged engine requires kv_int4")
+    page = pool["kq"].shape[-1]
+    st = input_tail.shape[1]
+    nrep = cfg.num_attention_heads // cfg.num_key_value_heads
+    row, tail_ids, cos, sin, mask = _tail_setup(page_row, input_tail, cfg,
+                                                page, prefix_pages, prefix_len)
+    x = params["embed"][input_tail].to(torch.bfloat16)
+    for i, lp in enumerate(params["layers"]):
+        h = M.rms_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, sc)
+        q, k = M.apply_rope(q, cos, sin), M.apply_rope(k, cos, sin)
+        attn = _tail_attention(pool, i, row, tail_ids, prefix_pages,
+                               prefix_len, q, k, v, mask, sc, nrep)
+        x = x + _attn_out(lp, attn.reshape(1, st, -1), cfg, sc)
+        h2 = M.rms_norm(x, lp.get("post_norm"), cfg.rms_norm_eps)
+        x = x + _mlp(lp, h2, cfg, sc)
+    last = prompt_len - prefix_len - 1
+    return _last_logits(params, x[:, last:last + 1], cfg)[0], pool
 
 
 @torch.no_grad()
@@ -161,27 +229,40 @@ def _decode_paged_local(params, pool, page_tables, lengths, token_ids,
                         sc: ServingConfig):
     """One joint decode step over all slots: per layer the linears,
     decode_prep, and the paged attention kernel that folds the new token in
-    and appends it to the pool in place."""
+    and appends it to the pool in place; with pages under 128 tokens the
+    append kernel, then the read-only attention over lengths + 1 tokens
+    (default QK: the reference passes no int8_qk there)."""
     cfg = sc.cfg
     ls = params["layers_stacked"]
     L = pool["kq"].shape[0]
-    _check_page(pool["kq"].shape[-1])
+    page = pool["kq"].shape[-1]
+    _check_page(page)
+    fused_append = page % 128 == 0
     b = token_ids.shape[0]
     hd = cfg.head_dim_
     nq, nkv, mix_heads, mix_act = _fast_path_helpers(cfg)
 
     x = params["embed"][token_ids][:, None, :].to(torch.bfloat16)
     cos, sin = M.rope_tables(cfg, lengths)                   # (B, hd)
+    read_len = lengths + 1                 # the sub-128 read sees the new token
     for i in range(L):
         h = M.rms_norm(x, _sl(ls.get("input_norm"), i), cfg.rms_norm_eps)
         q, k, v = qkv_fast(ls, h.reshape(b, -1), i, sc)
         qh, k_self, v_self, kq_, kp_, vq_, vp_ = decode_prep(
             q.reshape(b, nq, hd), k.reshape(b, nkv, hd),
             v.reshape(b, nkv, hd), cos, sin, kv_had=sc.kv_hadamard)
-        attn = PKV.int4_paged_decode_attention_self_append(
-            qh, pool["kq"], pool["kp"], pool["vq"], pool["vp"], i,
-            page_tables, lengths, k_self, v_self, kq_, kp_, vq_, vp_,
-            int8_qk=sc.attn_int8_qk)
+        if fused_append:
+            attn = PKV.int4_paged_decode_attention_self_append(
+                qh, pool["kq"], pool["kp"], pool["vq"], pool["vp"], i,
+                page_tables, lengths, k_self, v_self, kq_, kp_, vq_, vp_,
+                int8_qk=sc.attn_int8_qk)
+        else:
+            PKV.paged_append_pool(pool["kq"], pool["kp"], pool["vq"],
+                                  pool["vp"], i, page_tables, lengths, kq_,
+                                  kp_, vq_, vp_)
+            attn = PKV.int4_paged_decode_attention(
+                qh, pool["kq"][i], pool["kp"][i], pool["vq"][i],
+                pool["vp"][i], page_tables, read_len)
         x = attn_out_fast(ls, i, x, attn.reshape(b, 1, nq * hd), sc,
                           mix_heads)
         x = mlp_fast(ls, i, x, cfg, sc, mix_act)
@@ -197,6 +278,42 @@ def decode_step_paged_fast(params, pool, page_tables, lengths, token_ids,
     already cached per slot; token_ids: (B,).  Returns (logits (B, V), pool)."""
     return _decode_paged_local(params, pool, page_tables, lengths, token_ids,
                                sc)
+
+
+@torch.no_grad()
+def decode_step_paged(params, pool, page_tables, lengths, token_ids,
+                      sc: ServingConfig):
+    """The reference's per-layer paged decode step on unstacked
+    params["layers"]: per layer the projections (serving_linear), the new
+    token quantized and appended by plain indexing, then the read-only
+    paged attention over lengths + 1 tokens.  Any page size; the pool is
+    updated in place.  Returns (logits (B, V), pool)."""
+    cfg = sc.cfg
+    B, hd = token_ids.shape[0], cfg.head_dim_
+    x = params["embed"][token_ids][:, None, :].to(torch.bfloat16)
+    cos, sin = M.rope_tables(cfg, lengths)
+    cos, sin = cos[:, None, :], sin[:, None, :]
+    for i, lp in enumerate(params["layers"]):
+        h = M.rms_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, sc)
+        q, k = M.apply_rope(q, cos, sin), M.apply_rope(k, cos, sin)
+        kb, vb = k.transpose(1, 2), v.transpose(1, 2)        # (B, H, 1, D)
+        if sc.kv_hadamard:
+            kb = hadamard_transform_last(kb)
+        kq_, kp_ = to_lane_major(*asym_quant_pack_head(kb))
+        vq_, vp_ = to_lane_major(*asym_quant_pack_head(vb))
+        pool = _pool_append_token(pool, i, page_tables, lengths, kq_, kp_,
+                                  vq_, vp_)
+        qh = q.reshape(B, -1, hd)
+        if sc.kv_hadamard:
+            qh = hadamard_transform_last(qh)
+        attn = PKV.int4_paged_decode_attention(
+            qh, pool["kq"][i], pool["kp"][i], pool["vq"][i], pool["vp"][i],
+            page_tables, lengths + 1)
+        x = x + _attn_out(lp, attn.reshape(B, 1, -1), cfg, sc)
+        h2 = M.rms_norm(x, lp.get("post_norm"), cfg.rms_norm_eps)
+        x = x + _mlp(lp, h2, cfg, sc)
+    return _last_logits(params, x, cfg), pool
 
 
 # ---------------------------------------------------------------------------

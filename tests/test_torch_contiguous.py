@@ -344,12 +344,33 @@ def test_linear_fast_dispatch(model):
 
 
 def test_scan_decode_env_raises(model, monkeypatch):
+    """RSQ_SCAN_DECODE=1 raised before the read-only contiguous attention
+    was ported (the test keeps its name from then); it now takes the
+    reference's layer-scanned branch, here on
+    the bf16 cache (B): bit-equal to the per-layer decode_step on the same
+    params, unstacked (test_torch_layers.py holds both against the
+    reference)."""
     cfg, jcfg, P, _ = model
     _, tsc = configs(cfg, jcfg, "B")
-    monkeypatch.setenv("RSQ_SCAN_DECODE", "1")
-    with pytest.raises(NotImplementedError, match="row 2"):
-        TS.decode_step_stacked(P["B"][1], TS.init_cache(tsc, 1, device="cpu"),
-                               torch.zeros(1, dtype=torch.int32), tsc)
+    tp = P["B"][1]
+    toks = torch.tensor([3, 9], dtype=torch.int32)
+    caches = []
+    for scan in (True, False):
+        cache = TS.init_cache(tsc, 2, device="cpu")
+        _, cache = TS.prefill_fast(tp, cache, torch.arange(2 * 11).reshape(
+            2, 11) % cfg.vocab_size, tsc)
+        if scan:
+            monkeypatch.setenv("RSQ_SCAN_DECODE", "1")
+            logits, cache = TS.decode_step_stacked(tp, cache, toks, tsc)
+            monkeypatch.delenv("RSQ_SCAN_DECODE")
+        else:
+            logits, cache = TS.decode_step(TS.unstack_layer_params(tp), cache,
+                                           toks, tsc)
+        caches.append((logits, cache))
+    (ls, cs), (lp, cp) = caches
+    assert torch.equal(ls, lp)
+    for k in cs:
+        assert torch.equal(cs[k], cp[k]), k
 
 
 def test_random_dense_params():

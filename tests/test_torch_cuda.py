@@ -274,3 +274,151 @@ def test_w4_matmul_matches_plain(dev, M):
     want = TMW.w4_matmul(x, wp, sc)
     got = TMW.w4_matmul(x.to(dev), wp.to(dev), sc.to(dev))
     _w4_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 8, 130])
+def test_w4a4_paired_matches_plain(dev, M):
+    """Row 11, the unstacked W4A4 matmul on the L = 1 view: bit-equal, with
+    the absmax scale and with an explicit token_scale; w4a4_matmul's
+    un-paired output too."""
+    rng = np.random.default_rng(M + 1)
+    K, Nh = 256, 164
+    wp = torch.from_numpy(rng.integers(0, 256, (K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    ts = torch.from_numpy(rng.uniform(0.2, 0.6, (M, 1)).astype(np.float32))
+    for tok in (None, ts):
+        want = TMW.w4a4_matmul_paired(x, wp, s2, tok)
+        got = TMW.w4a4_matmul_paired(x.to(dev), wp.to(dev), s2.to(dev),
+                                     None if tok is None else tok.to(dev))
+        np.testing.assert_array_equal(f32(got), f32(want))
+    sc = torch.from_numpy(rng.uniform(0.01, 0.1, 2 * Nh).astype(np.float32))
+    np.testing.assert_array_equal(
+        f32(TMW.w4a4_matmul(x.to(dev), wp.to(dev), sc.to(dev))),
+        f32(TMW.w4a4_matmul(x, wp, sc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 130])
+@pytest.mark.parametrize("Nh", [500, 1024])
+def test_w4_paired_and_affine_match_plain(dev, M, Nh):
+    """Rows 9 and 10 on the L = 1 view; Nh = 500 is ragged (byte loads and
+    a masked last tile, no padding)."""
+    rng = np.random.default_rng(M + Nh)
+    K = 512
+    wp = torch.from_numpy(rng.integers(0, 256, (K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    sh = torch.tensor(0.0131)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    _w4_close(TMW.w4_matmul_paired(x.to(dev), wp.to(dev), s2.to(dev)),
+              TMW.w4_matmul_paired(x, wp, s2))
+    for pm in (False, True):
+        _w4_close(TMW.w4_affine_matmul(x.to(dev), wp.to(dev), sh.to(dev),
+                                       plane_major=pm),
+                  TMW.w4_affine_matmul(x, wp, sh, plane_major=pm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_decode_attention_stacked_matches_plain(dev, int8_qk):
+    """Row 2, read-only, with its softmax state: out within 2 bf16
+    roundings, m and l within 1e-5 relative + 1e-5 (a logit is the
+    difference of two f32 products, raw * ks - qsum * kz, whose sums run in
+    another order: near 0 its error is absolute); the row of length 0
+    gives NaN, -inf and 0; the cache is not written."""
+    rng = np.random.default_rng(6)
+    L, B, Hkv, G, D, S = 2, 4, 8, 4, 128, 320
+    cache = _int4_cache(rng, L, B, Hkv, D, S)
+    lengths = torch.tensor([300, 128, 0, 1], dtype=torch.int32)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2
+                          ).astype(np.float32)).to(torch.bfloat16)
+    want = TKV.int4_decode_attention_stacked(q, *cache, 1, lengths,
+                                             int8_qk=int8_qk)
+    gpu = [t.to(dev) for t in cache]
+    got = TKV.int4_decode_attention_stacked(q.to(dev), *gpu, 1,
+                                            lengths.to(dev), int8_qk=int8_qk)
+    live = (lengths > 0).numpy()
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = f32(g), f32(w)
+        if i == 0:
+            np.testing.assert_allclose(g[live], w[live], rtol=4 * BF16_EPS,
+                                       atol=2e-3)
+            assert np.isnan(g[~live]).all()
+        else:
+            np.testing.assert_allclose(g[live], w[live], rtol=1e-5, atol=1e-5)
+            np.testing.assert_array_equal(g[~live], w[~live])
+    for g, c in zip(gpu, cache):
+        assert torch.equal(g.cpu(), c)
+
+
+def _paged_pool(rng, L, P, H, D, page):
+    return [torch.from_numpy(rng.integers(0, 256, (L, P, H, D // 2, page),
+                                          dtype=np.uint8)),
+            torch.from_numpy(np.stack(
+                [rng.uniform(0.01, 0.2, (L, P, H, page)),
+                 rng.uniform(-0.5, 0.5, (L, P, H, page))], 3
+            ).astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 64, 512])
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_paged_read_only_matches_plain(dev, page, int8_qk):
+    """Row 17 at any page size: a 128-token tile straddles 128 / page pages
+    of a table in no pool order; rows end mid-page, on a page boundary and
+    after one token.  Out within 2 bf16 roundings; pools not written."""
+    rng = np.random.default_rng(page + int8_qk)
+    L, B, Hkv, G, D = 2, 3, 8, 4, 128
+    NP = -(-700 // page)
+    P = B * NP + 1
+    kq, kp = _paged_pool(rng, L, P, Hkv, D, page)
+    vq, vp = _paged_pool(rng, L, P, Hkv, D, page)
+    pools = [kq, kp, vq, vp]
+    ptab = torch.from_numpy(rng.permutation(P)[:B * NP].reshape(B, NP)
+                            .astype(np.int32))
+    lengths = torch.tensor([NP * page - page // 2 - 1, (NP // 2) * page, 1],
+                           dtype=torch.int32)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2
+                          ).astype(np.float32)).to(torch.bfloat16)
+    want = TPKV.int4_paged_decode_attention_stacked(q, *pools, 1, ptab,
+                                                    lengths, int8_qk=int8_qk)
+    gpu = [t.to(dev) for t in pools]
+    got = TPKV.int4_paged_decode_attention_stacked(
+        q.to(dev), *gpu, 1, ptab.to(dev), lengths.to(dev), int8_qk=int8_qk)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=4 * BF16_EPS,
+                               atol=2e-3)
+    for g, c in zip(gpu, pools):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 512])
+def test_paged_append_matches_plain(dev, page):
+    """Row 21: pools bit-equal to the plain version's, with two live rows
+    appending into one shared page at different lanes, a row on its
+    second page, and an idle row on the null page 0."""
+    rng = np.random.default_rng(page)
+    L, P, H, D, B = 2, 8, 8, 128, 4
+    kq, kp = _paged_pool(rng, L, P, H, D, page)
+    vq, vp = _paged_pool(rng, L, P, H, D, page)
+    ptab = torch.tensor([[3, 5], [5, 6], [1, 2], [0, 0]], dtype=torch.int32)
+    pos = torch.tensor([page + 2, 7, page - 1, 0], dtype=torch.int32)
+    nkq, nkp = TKV.asym_quant_pack_head(torch.from_numpy(
+        rng.standard_normal((B, H, D)).astype(np.float32)))
+    nvq, nvp = TKV.asym_quant_pack_head(torch.from_numpy(
+        rng.standard_normal((B, H, D)).astype(np.float32)))
+    new = (nkq, nkp, nvq, nvp)
+    cpu = [t.clone() for t in (kq, kp, vq, vp)]
+    gpu = [t.to(dev) for t in (kq, kp, vq, vp)]
+    TPKV.paged_append_pool(*cpu, 1, ptab, pos, *new)
+    TPKV.paged_append_pool(*gpu, 1, ptab.to(dev), pos.to(dev),
+                           *(t.to(dev) for t in new))
+    for g, c in zip(gpu, cpu):
+        assert torch.equal(g.cpu(), c)
+    assert torch.equal(cpu[0][1, 5, :, :, 2], nkq[0])
+    assert torch.equal(cpu[0][1, 5, :, :, 7], nkq[1])

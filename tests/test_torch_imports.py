@@ -37,6 +37,16 @@ def test_modules_import_without_jax_or_rsq_tpu():
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        "from rsq_tpu_torch.serving.model import (serving_linear, "
+        "serving_linear_fused, prefill, decode_step, prefill_stacked)\n"
+        "from rsq_tpu_torch.serving.paged import (prefill_paged, "
+        "decode_step_paged)\n"
+        "from rsq_tpu_torch.kernels.paged_kv import (paged_append_pool, "
+        "int4_paged_decode_attention_stacked)\n"
+        "from rsq_tpu_torch.kernels.kv_cache import "
+        "int4_decode_attention_stacked\n"
+        "from rsq_tpu_torch.kernels.matmul_w4 import (w4a4_matmul_paired, "
+        "w4_matmul_paired, w4_affine_matmul)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'rsq_tpu.')) or m == 'rsq_tpu')\n"
         "assert not bad, bad\n"

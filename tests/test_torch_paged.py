@@ -231,10 +231,16 @@ def test_engine_matches_reference_engine(model, reference_steps_copy_inputs):
 
 
 def test_small_pages_raise(model):
+    """Pages under 128 tokens are served now (test_torch_small_pages.py;
+    the test keeps its name from when they were refused): the engine
+    refuses only what the reference refuses, a page of 128 tokens or more
+    that is not a multiple of 128, and serves page 64."""
     cfg, jcfg, jsp, tsp = model
     _, tsc = configs(cfg, jcfg)
     with pytest.raises(ValueError, match="multiple of 128"):
-        TPG.PagedServingEngine(tsp, tsc, page_size=64, device="cpu")
+        TPG.PagedServingEngine(tsp, tsc, page_size=192, device="cpu")
+    assert TPG.PagedServingEngine(tsp, tsc, page_size=64,
+                                  device="cpu").pool["kq"].shape[-1] == 64
 
 
 def test_prefix_hashes_and_allocator_match_reference():
