@@ -6,11 +6,16 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
   1. device  -- require CUDA; print the card's name and power limit.
   2. build   -- nvcc the CUDA sources of rsq_tpu_torch/csrc, in parallel.
-  3. kernels -- each of the seventeen kernels against its plain PyTorch
+  3. kernels -- each of the twenty kernels against its plain PyTorch
                 version on the card at the Llama-3-8B serving shapes, with
                 the tolerance stated beside each check; kernel, plain and
                 library-call times (CUDA events) and the least time the
-                card could take.
+                card could take.  The attention kernels also run on a copy
+                of their cache with every byte they must not read poisoned
+                (0xFF codes, NaN parameters).  Three kernels (rows 3, 7, 18
+                of PERF.md's table) lie on no serving path, as their TPU
+                kernels lie on none of the reference's: they must launch 0
+                times in phase 5.
   4. small   -- tiny models served on the GPU (kernels) and on the CPU
                 (plain versions) by the paged engine at pages 128 and 16,
                 the contiguous engine, the per-layer prefill/decode_step
@@ -171,6 +176,9 @@ W4A4_SHAPES = {"qkv": (4096, 3072), "o": (4096, 2048),
 # bucket; the per-layer path's kernels also at its prefill, whose 8 prompts
 # of 512 tokens serving_linear flattens into one call
 ENGINE_MS = (8, 1024)
+# M of the W4A4 checks held bit-equal but not timed: one row, and one past
+# a tile of 8 (2 tiles of 8 rows per block)
+CHECK_MS = (1, 9)
 
 
 def layer_ms():
@@ -197,7 +205,7 @@ def _w4a4_cases(dev, g, run, plain, decodes=(None,), ms=ENGINE_MS):
             torch.int8)
         w_i8 = w_i8.transpose(1, 2).contiguous().transpose(1, 2)
         del w
-        for M in ms:
+        for M in CHECK_MS + ms:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             want = plain(x, wp, s2, 1)
             for decode in decodes:
@@ -210,6 +218,8 @@ def _w4a4_cases(dev, g, run, plain, decodes=(None,), ms=ENGINE_MS):
                     raise AssertionError(
                         f"w4a4 {name} M={M} decode={decode}: not bit-equal, "
                         f"{int((diff > 0).sum())} differ, max {float(diff.max())}")
+            if M in CHECK_MS:
+                continue                          # held, not timed
             mp = max(32, -(-M // 8) * 8)          # _int_mm wants M > 16
             xq = torch.randint(-8, 8, (mp, K), dtype=torch.int8,
                                generator=g, device=dev)
@@ -242,7 +252,7 @@ def check_w4a4(dev, g):
             "replaces": "rsq_tpu/kernels/matmul_w4.py:559",
             "max_abs_err": err, **total,
             "unit": "one decode layer: qkv, o, upgate, down at M=8",
-            "check": "bit-equal to the plain version, M in (8, 1024)",
+            "check": "bit-equal to the plain version, M in (1, 9, 8, 1024)",
             "cases": cases}
 
 
@@ -264,7 +274,7 @@ def check_w4a4_paired(dev, g):
             "max_abs_err": err, **total,
             "unit": "one decode layer: qkv, o, upgate, down at M=8",
             "check": "bit-equal to the plain version with decode=True and "
-                     f"decode=False, M in {layer_ms()}",
+                     f"decode=False, M in {CHECK_MS + layer_ms()}",
             "cases": cases}
 
 
@@ -362,6 +372,47 @@ def _int4_cache(dev, g, L, B, H, D, S):
     return [cache[n] for n in ("kq", "kp", "vq", "vp")]
 
 
+# The poisoned-cache checks: every byte a kernel must not read is 0xFF
+# (codes) or NaN (parameters), so a stray read shows as NaN in the output,
+# which must still equal the plain version on the clean cache.
+
+def poisoned(arrays, live):
+    """Copies of (kq, kp, vq, vp) with every cell outside the mask `live`
+    (broadcast over the layer, head and D/2-or-2 axes) poisoned."""
+    return [torch.where(live, a, torch.full((), 255 if a.dtype == torch.uint8
+                                            else math.nan, dtype=a.dtype,
+                                            device=a.device))
+            for a in arrays]
+
+
+def slots_live(lengths, S, keep=0):
+    """Contiguous cache (L, B, H, x, S): the first lengths[b] + keep
+    columns of each row (keep = 1 spares the column an append writes)."""
+    pos = torch.arange(S, device=lengths.device)
+    return (pos[None, :] < lengths.long()[:, None] + keep)[None, :, None,
+                                                           None, :]
+
+
+def pages_live(ptab, lengths, P, page, keep=0):
+    """Page pool (L, P, H, x, page): the cells holding tokens t <
+    lengths[b] + keep of each row b through its table; every page no table
+    names, and every other cell, is poisoned."""
+    t = torch.arange(ptab.shape[1] * page, device=ptab.device)
+    valid = t[None, :] < lengths.long()[:, None] + keep
+    pid = ptab.long()[:, t // page]
+    col = (t % page).expand_as(pid)
+    live = torch.zeros((P, page), dtype=torch.bool, device=ptab.device)
+    live[pid[valid], col[valid]] = True
+    return live[None, :, None, None, :]
+
+
+def bits(t):
+    """A tensor's bits, so that equal NaNs compare equal."""
+    if not t.is_floating_point():
+        return t
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
 def check_paged_attention(dev, g, cfg):
     from rsq_tpu_torch.kernels import kv_cache as KV
     from rsq_tpu_torch.kernels import paged_kv as PKV
@@ -384,27 +435,33 @@ def check_paged_attention(dev, g, cfg):
     rest = (ptab, lengths, KV.unpack_dequant_head(nkq, nkp),
             KV.unpack_dequant_head(nvq, nvp), nkq, nkp, nvq, nvp)
     names = ("kq", "kp", "vq", "vp")
+    live = pages_live(ptab, lengths, P, page, keep=1)
     err = 0.0
     for int8_qk in (True, False):
         pk = [pool[n].clone() for n in names]
         pp = [pool[n].clone() for n in names]
+        px = poisoned([pool[n] for n in names], live)
         got = PKV.int4_paged_decode_attention_self_append(
             q, *pk, L - 1, *rest, int8_qk=int8_qk)
+        bad = PKV.int4_paged_decode_attention_self_append(
+            q, *px, L - 1, *rest, int8_qk=int8_qk)
         want = PKV.paged_self_append_plain(q, *pp, L - 1, *rest,
                                            int8_qk=int8_qk)
         torch.cuda.synchronize()
-        e = (got.float() - want.float()).abs()
         # f32 sums in another order over a tiled online softmax, then one
-        # bf16 rounding: within 4 bf16 rounding units + 2e-3
-        if not bool((e <= 4 * BF16_EPS * want.float().abs() + 2e-3).all()):
-            raise AssertionError(f"paged attention int8_qk={int8_qk}: "
-                                 f"max err {float(e.max())}")
-        err = max(err, float(e.max()))
+        # bf16 rounding: within 4 bf16 rounding units + 2e-3; the same on
+        # the poisoned pool
+        err = max(err, _attn_err(got, want, f"paged attention int8_qk="
+                                            f"{int8_qk}"),
+                  _attn_err(bad, want, f"paged attention int8_qk={int8_qk}"
+                                       ", poisoned pool"))
         # the in-place append: pools bit-equal (written column + the rest)
-        for n, a, b in zip(names, pk, pp):
+        for n, a, b, x, y in zip(names, pk, pp, px, poisoned(pp, live)):
             if not torch.equal(a, b):
                 raise AssertionError(f"paged attention pool {n} differs")
-        del pk, pp
+            if not torch.equal(bits(x), bits(y)):
+                raise AssertionError(f"paged attention poisoned pool {n}")
+        del pk, pp, px
     pl = [pool[n] for n in names]
     t = timings(rotating(lambda j: PKV.int4_paged_decode_attention_self_append(
                     q, *pl, j, *rest, int8_qk=True), L),
@@ -424,7 +481,8 @@ def check_paged_attention(dev, g, cfg):
             "unit": "one decode layer, B=8, page 512, lengths "
                     + ",".join(str(int(x)) for x in lengths) + ", int8_qk",
             "check": "out within 4*2^-8 rel + 2e-3 of the plain version, "
-                     "int8_qk on and off; pools bit-equal after the append"}
+                     "int8_qk on and off, also on a poisoned pool; pools "
+                     "bit-equal after the append"}
 
 
 # one decode layer of the contiguous phases: 8 slots of 1024 tokens, fill
@@ -447,24 +505,30 @@ def check_contiguous_attention(dev, g, cfg):
     nvq, nvp = KV.asym_quant_pack_head(nv)
     rest = (lengths, KV.unpack_dequant_head(nkq, nkp),
             KV.unpack_dequant_head(nvq, nvp), nkq, nkp, nvq, nvp)
+    live = slots_live(lengths, S, keep=1)
     err = 0.0
     for int8_qk in (True, False):
         ck = [t.clone() for t in cache]
         cp = [t.clone() for t in cache]
+        cx = poisoned(cache, live)
         got = KV.int4_decode_attention_self_append(q, *ck, L - 1, *rest,
+                                                   int8_qk=int8_qk)
+        bad = KV.int4_decode_attention_self_append(q, *cx, L - 1, *rest,
                                                    int8_qk=int8_qk)
         want = KV.self_append_plain(q, *cp, L - 1, *rest, int8_qk=int8_qk)
         torch.cuda.synchronize()
-        e = (got.float() - want.float()).abs()
         # as the paged kernel (the same device body): 4 bf16 units + 2e-3
-        if not bool((e <= 4 * BF16_EPS * want.float().abs() + 2e-3).all()):
-            raise AssertionError(f"contiguous attention int8_qk={int8_qk}: "
-                                 f"max err {float(e.max())}")
-        err = max(err, float(e.max()))
-        for n, a, b in zip(("kq", "kp", "vq", "vp"), ck, cp):
+        err = max(err, _attn_err(got, want, f"contiguous attention int8_qk="
+                                            f"{int8_qk}"),
+                  _attn_err(bad, want, f"contiguous attention int8_qk="
+                                       f"{int8_qk}, poisoned cache"))
+        for n, a, b, x, y in zip(("kq", "kp", "vq", "vp"), ck, cp, cx,
+                                 poisoned(cp, live)):
             if not torch.equal(a, b):
                 raise AssertionError(f"contiguous attention cache {n} differs")
-        del ck, cp
+            if not torch.equal(bits(x), bits(y)):
+                raise AssertionError(f"contiguous attention poisoned {n}")
+        del ck, cp, cx
     big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
     t = timings(rotating(lambda j: KV.int4_decode_attention_self_append(
                     q, *big, j, *rest, int8_qk=True), TIMING_LAYERS),
@@ -484,7 +548,8 @@ def check_contiguous_attention(dev, g, cfg):
             "unit": "one decode layer, B=8, S=1024, lengths "
                     + ",".join(map(str, CONTIG_LENGTHS)) + ", int8_qk",
             "check": "out within 4*2^-8 rel + 2e-3 of the plain version, "
-                     "int8_qk on and off; caches bit-equal after the append"}
+                     "int8_qk on and off, also on a poisoned cache; caches "
+                     "bit-equal after the append"}
 
 
 def _bf16_cache(dev, g, L, B, H, S, D):
@@ -854,15 +919,20 @@ def check_decode_attention(dev, g, cfg):
     live = lengths > 0
     q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
         torch.bfloat16)
+    bad_cache = poisoned(cache, slots_live(lengths, S))
     err = 0.0
     for int8_qk in (False, True):
         got = KV.int4_decode_attention_stacked(q, *cache, L - 1, lengths,
+                                               int8_qk=int8_qk)
+        bad = KV.int4_decode_attention_stacked(q, *bad_cache, L - 1, lengths,
                                                int8_qk=int8_qk)
         want = KV.decode_attention_plain(q, *cache, L - 1, lengths,
                                          int8_qk=int8_qk)
         torch.cuda.synchronize()
         err = max(err, _attn_err(got[0][live], want[0][live],
                                  f"decode attention int8_qk={int8_qk}"))
+        ensure(all(torch.equal(bits(a), bits(b)) for a, b in zip(bad, got)),
+               "decode attention on the poisoned cache differs")
         # m, l: f32 sums in another order; a logit is a difference of two
         # products, so 1e-5 relative + 1e-5
         for a, w in zip(got[1:], want[1:]):
@@ -875,7 +945,7 @@ def check_decode_attention(dev, g, cfg):
                "decode attention length-0 row")
     ensure(all(torch.equal(a, b) for a, b in zip(cache, before)),
            "decode attention wrote the cache")
-    del cache, before
+    del cache, before, bad_cache
     big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
     t = timings(rotating(lambda j: KV.int4_decode_attention_stacked(
                     q, *big, j, lengths), TIMING_LAYERS),
@@ -895,7 +965,8 @@ def check_decode_attention(dev, g, cfg):
                     + ",".join(map(str, CONTIG_LENGTHS)) + ", bf16 QK",
             "check": "out within 4*2^-8 rel + 2e-3 where the length is not "
                      "0, m and l within 1e-5 rel + 1e-5, int8_qk off and "
-                     "on; length-0 row NaN, -inf, 0; cache unchanged"}
+                     "on; length-0 row NaN, -inf, 0; cache unchanged; on a "
+                     "poisoned cache out, m, l bit-equal to the clean run"}
 
 
 # one decode layer of the paged phases: 8 rows of 300-700 tokens
@@ -930,17 +1001,23 @@ def check_paged_read_only(dev, g, cfg):
         pool, ptab = _paged_pool(dev, g, TIMING_LAYERS, Hkv, D, page,
                                  PAGED_LENGTHS)
         before = [t.clone() for t in pool]
+        bad_pool = poisoned(pool, pages_live(ptab, lengths, pool[0].shape[1],
+                                             page))
         for int8_qk in (False, True):
             got = PKV.int4_paged_decode_attention_stacked(
                 q, *pool, 1, ptab, lengths, int8_qk=int8_qk)
+            bad = PKV.int4_paged_decode_attention_stacked(
+                q, *bad_pool, 1, ptab, lengths, int8_qk=int8_qk)
             want = PKV.paged_read_plain(q, *pool, 1, ptab, lengths,
                                         int8_qk=int8_qk)
             torch.cuda.synchronize()
             err = max(err, _attn_err(got, want, f"paged read page {page} "
-                                                f"int8_qk={int8_qk}"))
+                                                f"int8_qk={int8_qk}"),
+                      _attn_err(bad, want, f"paged read page {page} "
+                                           f"int8_qk={int8_qk}, poisoned"))
         ensure(all(torch.equal(a, b) for a, b in zip(pool, before)),
                "paged read wrote the pool")
-        del before
+        del before, bad_pool
         t = timings(rotating(lambda j: PKV.int4_paged_decode_attention_stacked(
                         q, *pool, j, ptab, lengths), TIMING_LAYERS),
                     rotating(lambda j: PKV.paged_read_plain(
@@ -960,7 +1037,174 @@ def check_paged_read_only(dev, g, cfg):
             "unit": "one decode layer, B=8, page 16, lengths "
                     + ",".join(map(str, PAGED_LENGTHS)) + ", bf16 QK",
             "check": "out within 4*2^-8 rel + 2e-3, pages 16 and 64, int8_qk "
-                     "off and on; pool unchanged",
+                     "off and on, also on a poisoned pool; pool unchanged",
+            "cases": cases}
+
+
+def check_decode_attention_self(dev, g, cfg):
+    """Row 3, the read-only contiguous attention with the new token folded
+    in, at row 2's shapes (B=8, S=1024, CONTIG_LENGTHS, the length-0 row
+    included), int8_qk off and on, on a clean and on a poisoned cache.  No
+    serving path runs it (none of the reference's does)."""
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    cache = _int4_cache(dev, g, L, B, Hkv, D, S)
+    before = [t.clone() for t in cache]
+    bad_cache = poisoned(cache, slots_live(
+        torch.tensor(CONTIG_LENGTHS, device=dev), S))
+    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    k_self, v_self = (KV.unpack_dequant_head(*KV.asym_quant_pack_head(
+        torch.randn((B, Hkv, D), generator=g, device=dev))) for _ in range(2))
+    err = 0.0
+    for int8_qk in (False, True):
+        got = KV.int4_decode_attention_stacked_self(
+            q, *cache, L - 1, lengths, k_self, v_self, int8_qk=int8_qk)
+        bad = KV.int4_decode_attention_stacked_self(
+            q, *bad_cache, L - 1, lengths, k_self, v_self, int8_qk=int8_qk)
+        want = KV.decode_attention_self_plain(
+            q, *cache, L - 1, lengths, k_self, v_self, int8_qk=int8_qk)
+        torch.cuda.synchronize()
+        err = max(err, _attn_err(got, want, f"decode attention self "
+                                            f"int8_qk={int8_qk}"),
+                  _attn_err(bad, want, f"decode attention self int8_qk="
+                                       f"{int8_qk}, poisoned cache"))
+    ensure(all(torch.equal(a, b) for a, b in zip(cache, before)),
+           "decode attention self wrote the cache")
+    del cache, before, bad_cache
+    big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
+    t = timings(rotating(lambda j: KV.int4_decode_attention_stacked_self(
+                    q, *big, j, lengths, k_self, v_self), TIMING_LAYERS),
+                rotating(lambda j: KV.decode_attention_self_plain(
+                    q, *big, j, lengths, k_self, v_self), TIMING_LAYERS))
+    del big
+    tokens = sum(CONTIG_LENGTHS)
+    nbytes = (tokens * Hkv * 2 * (D // 2 + 8)                   # cached k, v
+              + 2 * B * Hq * D * 2                              # q, out
+              + 2 * B * Hkv * D * 4 + B * 4)                    # self, lengths
+    b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
+    return {"name": "int4_decode_attention_stacked_self", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:580",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "path": "none: no serving path of rsq_tpu runs it",
+            "unit": "one decode layer, B=8, S=1024, lengths "
+                    + ",".join(map(str, CONTIG_LENGTHS)) + ", bf16 QK",
+            "check": "out within 4*2^-8 rel + 2e-3 of the plain version "
+                     "(the length-0 row: v_self), int8_qk off and on, also "
+                     "on a poisoned cache; cache unchanged"}
+
+
+def check_kv_append(dev, g, cfg):
+    """Row 7, the contiguous INT4 append, at row 4's shapes (B=8, S=1024,
+    positions CONTIG_LENGTHS: 0 and S - 1 included): caches bit-equal to
+    the plain version's; timed with indexed assignment as the library
+    call.  No serving path runs it."""
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    H, D = cfg.num_key_value_heads, cfg.head_dim_
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    cache = _int4_cache(dev, g, L, B, H, D, S)
+    pos = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    new = []
+    for _ in range(2):
+        c, p = KV.asym_quant_pack_head(torch.randn((B, H, D), generator=g,
+                                                   device=dev))
+        new += [c[..., None], p[..., None]]              # lane-major (., 1)
+    plain = [t.clone() for t in cache]
+    KV.kv_append_stacked(*cache, L - 1, pos, *new)
+    KV.kv_append_stacked_plain(*plain, L - 1, pos, *new)
+    torch.cuda.synchronize()
+    ensure(all(torch.equal(a, b) for a, b in zip(cache, plain)),
+           "kv append: caches differ from the plain version")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(cache, plain))
+    del plain
+    rows, p64 = torch.arange(B, device=dev), pos.long()
+
+    def library(i=0):
+        for arr, val in zip(cache, new):
+            arr[L - 1, rows, :, :, p64] = val[..., 0]
+
+    t = timings(lambda i=0: KV.kv_append_stacked(*cache, L - 1, pos, *new),
+                lambda i=0: KV.kv_append_stacked_plain(*cache, L - 1, pos,
+                                                       *new),
+                library)
+    b, by = bound_ms(2 * 2 * B * H * (D // 2 + 8) + B * 4, 0.0, "bf16")
+    return {"name": "kv_append_stacked", "route": "cuda",
+            "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:1005",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+            "path": "none: no serving path of rsq_tpu runs it",
+            "library": "indexed assignment cache[layer, b_idx, :, :, pos] = ...",
+            "unit": "one decode layer, B=8, S=1024",
+            "check": "whole caches bit-equal to the plain version"}
+
+
+def check_paged_read_self(dev, g, cfg):
+    """Row 18, the read-only paged attention with the new token folded in,
+    at row 17's shapes and pages 16 and 512, over tables in no pool order,
+    int8_qk off and on, on a clean and on a poisoned pool; the top-level
+    times are page 16's.  No serving path runs it."""
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels import paged_kv as PKV
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    B = len(PAGED_LENGTHS)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    k_self, v_self = (KV.unpack_dequant_head(*KV.asym_quant_pack_head(
+        torch.randn((B, Hkv, D), generator=g, device=dev))) for _ in range(2))
+    tokens = sum(PAGED_LENGTHS)
+    cases, err = [], 0.0
+    for page in (16, 512):
+        pool, ptab = _paged_pool(dev, g, TIMING_LAYERS, Hkv, D, page,
+                                 PAGED_LENGTHS)
+        before = [t.clone() for t in pool]
+        bad_pool = poisoned(pool, pages_live(ptab, lengths, pool[0].shape[1],
+                                             page))
+        for int8_qk in (False, True):
+            got = PKV.int4_paged_decode_attention_stacked_self(
+                q, *pool, 1, ptab, lengths, k_self, v_self, int8_qk=int8_qk)
+            bad = PKV.int4_paged_decode_attention_stacked_self(
+                q, *bad_pool, 1, ptab, lengths, k_self, v_self,
+                int8_qk=int8_qk)
+            want = PKV.paged_read_self_plain(q, *pool, 1, ptab, lengths,
+                                             k_self, v_self, int8_qk=int8_qk)
+            torch.cuda.synchronize()
+            err = max(err, _attn_err(got, want, f"paged read self page "
+                                                f"{page} int8_qk={int8_qk}"),
+                      _attn_err(bad, want, f"paged read self page {page} "
+                                           f"int8_qk={int8_qk}, poisoned"))
+        ensure(all(torch.equal(a, b) for a, b in zip(pool, before)),
+               "paged read self wrote the pool")
+        del before, bad_pool
+        t = timings(rotating(
+                        lambda j: PKV.int4_paged_decode_attention_stacked_self(
+                            q, *pool, j, ptab, lengths, k_self, v_self),
+                        TIMING_LAYERS),
+                    rotating(lambda j: PKV.paged_read_self_plain(
+                        q, *pool, j, ptab, lengths, k_self, v_self),
+                        TIMING_LAYERS))
+        nbytes = (tokens * Hkv * 2 * (D // 2 + 8) + 2 * B * Hq * D * 2
+                  + 2 * B * Hkv * D * 4 + ptab.numel() * 4 + B * 4)
+        b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
+        cases.append({"page": page, **t, "bound_ms": b, "bound_by": by})
+        del pool
+    return {"name": "int4_paged_decode_attention_stacked_self",
+            "route": "cuda", "source": "rsq_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "rsq_tpu/kernels/paged_kv.py:324",
+            "max_abs_err": err,
+            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+            "library_ms": None,
+            "path": "none: no serving path of rsq_tpu runs it",
+            "unit": "one decode layer, B=8, page 16, lengths "
+                    + ",".join(map(str, PAGED_LENGTHS)) + ", bf16 QK",
+            "check": "out within 4*2^-8 rel + 2e-3, pages 16 and 512, "
+                     "int8_qk off and on, also on a poisoned pool; pool "
+                     "unchanged",
             "cases": cases}
 
 
@@ -1491,6 +1735,10 @@ LAYERS_W4_KERNELS = ("w4_matmul_paired", "int4_decode_attention_stacked",
                      "w4_matmul")
 LAYERS_E8P_KERNELS = ("w4_affine_matmul", "int4_decode_attention_stacked",
                       "w8_matmul")
+# kernels no serve phase runs, because no serving path of the reference
+# calls their TPU kernels (kernel table rows 3, 7, 18)
+OFF_PATH = ("int4_decode_attention_stacked_self", "kv_append_stacked",
+            "int4_paged_decode_attention_stacked_self")
 PAGE16_KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
                   "paged_append_pool", "int4_paged_decode_attention_stacked")
 
@@ -1769,7 +2017,10 @@ def main(argv):
                lambda: check_w4_affine_unstacked(dev, g, cfg),
                lambda: check_decode_attention(dev, g, cfg),
                lambda: check_paged_read_only(dev, g, cfg),
-               lambda: check_paged_append(dev, g, cfg)):
+               lambda: check_paged_append(dev, g, cfg),
+               lambda: check_decode_attention_self(dev, g, cfg),
+               lambda: check_kv_append(dev, g, cfg),
+               lambda: check_paged_read_self(dev, g, cfg)):
         t0 = time.perf_counter()
         kernels.append(fn())
         torch.cuda.empty_cache()
@@ -1868,7 +2119,11 @@ def main(argv):
         k["launches_by_phase"] = {n: v[0] for n, v in by_phase.items()}
         k["launches_per_decode_step"] = {n: v[1] for n, v in by_phase.items()}
         k["card"] = smi
-        ensure(k["launches"] > 0, f"{k['name']} not on any main path")
+        if k["name"] in OFF_PATH:
+            # rows 3, 7, 18: no path of the reference runs them
+            ensure(k["launches"] == 0, f"{k['name']} ran on a serve path")
+        else:
+            ensure(k["launches"] > 0, f"{k['name']} not on any main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

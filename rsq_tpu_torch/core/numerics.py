@@ -30,10 +30,16 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * recip_f32(c)
 
 
+def folded_mul_div(c: float, d: float) -> float:
+    """The one f32 constant XLA folds `* c / d` into: f32(f32(c) * f32(1/d))
+    (the CUDA kernels take it as an argument)."""
+    return float(np.float32(c) * np.float32(recip_f32(d)))
+
+
 def mul_div_const(x: torch.Tensor, c: float, d: float) -> torch.Tensor:
     """x * c / d as the reference computes it under jit: XLA folds the two
     constants into one, x * f32(f32(c) * f32(1/d))."""
-    return x * float(np.float32(c) * np.float32(recip_f32(d)))
+    return x * folded_mul_div(c, d)
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:

@@ -1,12 +1,16 @@
 // Contiguous-slot INT4 decode attention: with the new token folded in and
-// appended (row 4 of the kernel table), and read-only with the softmax state
-// (row 2).
+// appended (row 4 of the kernel table), read-only with the softmax state
+// (row 2), and read-only with the new token folded in (row 3); and the
+// contiguous cache's one-token append (row 7).
 //
 // Replaces: rsq_tpu/kernels/kv_cache.py
 //   - int4_decode_attention_self_append (:695), Pallas body
 //     _decode_kernel_self_append (:654);
 //   - int4_decode_attention_stacked (:497), Pallas body _decode_kernel_pref
-//     (:374), and through its L = 1 view int4_decode_attention (:244).
+//     (:374), and through its L = 1 view int4_decode_attention (:244);
+//   - int4_decode_attention_stacked_self (:580), Pallas body
+//     _decode_kernel_pref_self (:474);
+//   - kv_append_stacked (:1005), Pallas body _append_kernel (:979).
 // Computes: int4_attention.cuh's bodies over row b's cached tokens, which
 //   lie contiguous along S in the (L, B, Hkv, D/2, S) codes and
 //   (L, B, Hkv, 2, S) parameters at layer `layer`.
@@ -17,10 +21,19 @@
 //   port does not copy them.  A row with len >= S writes nothing.
 //   read_only: out (B, Hq, D) bf16 and m, l (B, Hkv, G) f32; the cache is
 //   only read.  A row of length 0: out NaN, m -inf, l 0.
+//   read_only_self: out (B, Hq, D) bf16 with the new token folded in; the
+//   cache is only read.  A row of length 0: out = v_self.
+//   append: column pos[b] of each (layer, b, h) row of the four arrays, in
+//   place, exactly that column (the reference's kernel rewrites the
+//   128-lane window around it with the same values; nothing is staged
+//   here).
 // Bound on this card: the cache bytes of the cached tokens -- about 4.7 MB
-//   per Llama-3-8B layer at B=8, fill 512, the same as the paged kernel.
+//   per Llama-3-8B layer at B=8, fill 512, the same as the paged kernel;
+//   the append, its 2 * B * Hkv * (D/2 + 8) bytes written, so launch
+//   latency.
 // Design: int4_attention.cuh, one block per (b, kv head), 128-token tiles
-//   read with coalesced loads along S.
+//   read with coalesced loads along S.  The append runs one thread per
+//   written element, as paged_attention.cu's does.
 
 #include "int4_attention.cuh"
 
@@ -56,6 +69,45 @@ contiguous_attn_read_only(int4_attention::Args a, int layer, int B, int S) {
   int4_attention::read_only(a, at, b, h);
 }
 
+__global__ void __launch_bounds__(int4_attention::T)
+contiguous_attn_read_only_self(int4_attention::Args a, int layer, int B,
+                               int S) {
+  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+  const ContiguousAddr at{((size_t)layer * B + b) * a.Hkv + h, a.D / 2, S};
+  int4_attention::read_only_self(a, at, b, h);
+}
+
+constexpr int APPEND_THREADS = 256;
+
+// Thread i writes one element of column pos[b] of layer `layer`: k then v;
+// per (b, h) the D/2 code bytes, then the two parameters.
+__global__ void __launch_bounds__(APPEND_THREADS)
+kv_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
+          uint8_t* __restrict__ vq, float* __restrict__ vp,
+          const int32_t* __restrict__ pos, const uint8_t* __restrict__ nkq,
+          const float* __restrict__ nkp, const uint8_t* __restrict__ nvq,
+          const float* __restrict__ nvp, int B, int layer, int H, int D2,
+          int S) {
+  const int per_head = D2 + 2;
+  const int per_kv = B * H * per_head;
+  int i = blockIdx.x * APPEND_THREADS + threadIdx.x;
+  if (i >= 2 * per_kv) return;
+  const bool is_v = i >= per_kv;
+  i -= is_v ? per_kv : 0;
+  const int bh = i / per_head, x = i % per_head;
+  const int b = bh / H;
+  const size_t head = (size_t)layer * B * H + bh;   // (layer, b, h)
+  const int col = pos[b];
+  if (x < D2) {
+    (is_v ? vq : kq)[(head * D2 + x) * S + col] =
+        (is_v ? nvq : nkq)[(size_t)bh * D2 + x];
+  } else {
+    const int j = x - D2;
+    (is_v ? vp : kp)[(head * 2 + j) * S + col] =
+        (is_v ? nvp : nkp)[(size_t)bh * 2 + j];
+  }
+}
+
 }  // namespace
 
 extern "C" int contiguous_attention_self_append_launch(
@@ -85,5 +137,36 @@ extern "C" int contiguous_attention_read_only_launch(
   contiguous_attn_read_only<<<B * Hkv, int4_attention::T, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       a, layer, B, S);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int contiguous_attention_read_only_self_launch(
+    const void* q, const void* kq, const void* kp, const void* vq,
+    const void* vp, const void* lengths, const void* k_self,
+    const void* v_self, void* out, int B, int layer, int Hkv, int G, int D,
+    int S, float sm_scale, int int8_qk, float inv127, void* stream) {
+  int4_attention::Args a = int4_attention::make_args(
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
+  a.k_self = static_cast<const float*>(k_self);
+  a.v_self = static_cast<const float*>(v_self);
+  contiguous_attn_read_only_self<<<B * Hkv, int4_attention::T, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      a, layer, B, S);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kv_append_launch(void* kq, void* kp, void* vq, void* vp,
+                                const void* pos, const void* nkq,
+                                const void* nkp, const void* nvq,
+                                const void* nvp, int B, int layer, int H,
+                                int D2, int S, void* stream) {
+  const int n = 2 * B * H * (D2 + 2);
+  kv_append<<<(n + APPEND_THREADS - 1) / APPEND_THREADS, APPEND_THREADS, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(kq), static_cast<float*>(kp),
+      static_cast<uint8_t*>(vq), static_cast<float*>(vp),
+      static_cast<const int32_t*>(pos), static_cast<const uint8_t*>(nkq),
+      static_cast<const float*>(nkp), static_cast<const uint8_t*>(nvq),
+      static_cast<const float*>(nvp), B, layer, H, D2, S);
   return (int)cudaGetLastError();
 }

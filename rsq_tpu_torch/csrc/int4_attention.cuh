@@ -1,11 +1,12 @@
 // Device bodies shared by the INT4 decode-attention kernels: the paged ones
 // (paged_attention.cu) and the contiguous-slot ones (contiguous_attention.cu),
-// each in two forms -- `self_append`, which folds the new token in and
-// appends it, and `read_only`, which attends over the cached tokens and
-// emits the softmax state.  The kernels differ only in where row b's tokens
-// live, so the bodies are templated on an addressing functor; both forms
-// run the one tile loop (`attend_cached`), so none of the four can drift
-// from the others.
+// each in three forms -- `self_append`, which folds the new token in and
+// appends it; `read_only_self`, the same fold over a cache it only reads;
+// and `read_only`, which attends over the cached tokens and emits the
+// softmax state.  The kernels differ only in where row b's tokens live, so
+// the bodies are templated on an addressing functor; every form runs the
+// one tile loop (`attend_cached`) and the two folding forms the one fold
+// (`fold_self`), so none of the six can drift from the others.
 //
 // attend_cached computes, per batch row b and kv head h, for the G = Hq/Hkv
 //   query rows of that head (q pre-scaled by sm_scale in f32), over the
@@ -15,10 +16,11 @@
 //       int_dot(q_i8, u) * qs with qs = max|q| * f32(1/127), the reference's
 //       `/ 127.0` as XLA compiles it under jit), masked with -1e30;
 //     online softmax (m, l); ps = bf16(p*vs); acc = acc*alpha + ps.u_v - sum(p*vz)
-// self_append then runs _self_fold_finalize (:435-471): one more softmax
+// fold_self is _self_fold_finalize (:435-471, mix=False): one more softmax
 //   step over the new token's dequantized (k_self, v_self) with the f32 q,
-//   out = bf16(acc/l); finally the new token's codes and (scale, zero) are
-//   written in place at the column the functor names.
+//   out = bf16(acc/l).  A row of length 0 gives out = v_self.
+// self_append runs it, then writes the new token's codes and (scale, zero)
+//   in place at the column the functor names; read_only_self runs it alone.
 // read_only writes out = bf16(acc/l) and, where asked, the state m and l
 //   (the reference's _decode_kernel_pref, :374-432).  A row of length 0
 //   reads nothing: out = bf16(0/0) = NaN, m = -inf, l = 0 (the serving
@@ -275,19 +277,17 @@ __device__ __forceinline__ void attend_cached(const Args& a, const Addr& at,
   }
 }
 
-template <class Addr>
-__device__ __forceinline__ void self_append(const Args& a, const Addr& at,
-                                            int b, int h) {
-  __shared__ float qf[MAXG][MAXD];      // f32 q * sm_scale
+// The reference's _self_fold_finalize: one more online-softmax step over the
+// new token's dequantized (k_self, v_self) with the f32 q, then
+// out = bf16(acc / l).  Thread d < D writes output dimension d.
+__device__ __forceinline__ void fold_self(const Args& a, int b, int h,
+                                          const float (*qf)[MAXD],
+                                          const float (&m)[MAXG],
+                                          const float (&l)[MAXG],
+                                          const float (&acc)[MAXG]) {
   const int tid = threadIdx.x;
-  const int G = a.G, D = a.D, D2 = a.D / 2;
+  const int G = a.G, D = a.D;
   const int Hq = a.Hkv * G;
-  const int len = a.lengths[b];
-  const int stride = at.stride();
-  float m[MAXG], l[MAXG], acc[MAXG];
-  attend_cached(a, at, b, h, len, qf, m, l, acc);
-
-  // fold the new token (f32 q against the dequantized k_self / v_self)
   const size_t srow = ((size_t)b * a.Hkv + h) * D;
   if (tid < D) {
     const int d = tid;
@@ -303,6 +303,19 @@ __device__ __forceinline__ void self_append(const Args& a, const Addr& at,
       a.out[((size_t)b * Hq + h * G + g) * D + d] = __float2bfloat16_rn(__fdiv_rn(v, lf));
     }
   }
+}
+
+template <class Addr>
+__device__ __forceinline__ void self_append(const Args& a, const Addr& at,
+                                            int b, int h) {
+  __shared__ float qf[MAXG][MAXD];      // f32 q * sm_scale
+  const int tid = threadIdx.x;
+  const int D2 = a.D / 2;
+  const int len = a.lengths[b];
+  const int stride = at.stride();
+  float m[MAXG], l[MAXG], acc[MAXG];
+  attend_cached(a, at, b, h, len, qf, m, l, acc);
+  fold_self(a, b, h, qf, m, l, acc);
 
   // append the new token's column in place (all reads of this row are done)
   size_t wc, wp;
@@ -339,6 +352,15 @@ __device__ __forceinline__ void read_only(const Args& a, const Addr& at,
       a.l_out[srow + g] = l[g];
     }
   }
+}
+
+template <class Addr>
+__device__ __forceinline__ void read_only_self(const Args& a, const Addr& at,
+                                               int b, int h) {
+  __shared__ float qf[MAXG][MAXD];
+  float m[MAXG], l[MAXG], acc[MAXG];
+  attend_cached(a, at, b, h, a.lengths[b], qf, m, l, acc);
+  fold_self(a, b, h, qf, m, l, acc);
 }
 
 }  // namespace int4_attention

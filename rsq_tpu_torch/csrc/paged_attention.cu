@@ -8,6 +8,8 @@
 //   - int4_paged_decode_attention_stacked (:283), Pallas body
 //     _paged_kernel_fast, and through its L = 1 view
 //     int4_paged_decode_attention (:262): row 17;
+//   - int4_paged_decode_attention_stacked_self (:324), Pallas body
+//     _paged_kernel_fast_self (:212): row 18;
 //   - paged_append_pool (:801), Pallas body _paged_append_kernel (:776):
 //     row 21.
 // Computes:
@@ -20,6 +22,8 @@
 //     pages, and each token is found through the table on its own.  A row
 //     of length 0 gives out NaN (0/0); the serving path appends first, so
 //     it never reads one.
+//   read_only_self: the read-only tile loop, any page size, then the self
+//     fold of self_append; no write.  A row of length 0 gives v_self.
 //   append: one token per row b into (layer, ptab[b, pos // page], h, :,
 //     pos % page) of the code and parameter pools, in place, exactly that
 //     column (the reference's kernel rewrites its whole window; two rows
@@ -78,6 +82,16 @@ paged_attn_read_only(int4_attention::Args a, const int32_t* __restrict__ ptab,
   const PagedAddr at{ptab + (size_t)b * NP, layer, P, a.Hkv, h, a.D / 2, page,
                      NP};
   int4_attention::read_only(a, at, b, h);
+}
+
+__global__ void __launch_bounds__(int4_attention::T)
+paged_attn_read_only_self(int4_attention::Args a,
+                          const int32_t* __restrict__ ptab, int layer, int P,
+                          int page, int NP) {
+  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+  const PagedAddr at{ptab + (size_t)b * NP, layer, P, a.Hkv, h, a.D / 2, page,
+                     NP};
+  int4_attention::read_only_self(a, at, b, h);
 }
 
 constexpr int APPEND_THREADS = 256;
@@ -139,6 +153,22 @@ extern "C" int paged_attention_read_only_launch(
       q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
   paged_attn_read_only<<<B * Hkv, int4_attention::T, 0,
                          static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int paged_attention_read_only_self_launch(
+    const void* q, const void* kq, const void* kp, const void* vq,
+    const void* vp, const void* ptab, const void* lengths,
+    const void* k_self, const void* v_self, void* out, int B, int layer,
+    int P, int Hkv, int G, int D, int page, int NP, float sm_scale,
+    int int8_qk, float inv127, void* stream) {
+  int4_attention::Args a = int4_attention::make_args(
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
+  a.k_self = static_cast<const float*>(k_self);
+  a.v_self = static_cast<const float*>(v_self);
+  paged_attn_read_only_self<<<B * Hkv, int4_attention::T, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
   return (int)cudaGetLastError();
 }

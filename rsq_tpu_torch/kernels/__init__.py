@@ -17,7 +17,9 @@ KERNELS = ("w4a4_matmul_paired_stacked", "w8_matmul", "decode_prep",
            "w4_affine_matmul_stacked", "w4_matmul", "w4a4_matmul_paired",
            "w4_matmul_paired", "w4_affine_matmul",
            "int4_decode_attention_stacked",
-           "int4_paged_decode_attention_stacked", "paged_append_pool")
+           "int4_paged_decode_attention_stacked", "paged_append_pool",
+           "int4_decode_attention_stacked_self", "kv_append_stacked",
+           "int4_paged_decode_attention_stacked_self")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -9,9 +9,12 @@ The bf16 cache is token-major: (L, B, Hkv, S, D).
 
 Kernels, each with its plain version here:
 - decode_prep (csrc/decode_prep.cu)
-- int4_decode_attention_self_append and int4_decode_attention_stacked
-  (read-only, with its L = 1 view int4_decode_attention)
-  (csrc/contiguous_attention.cu)
+- int4_decode_attention_self_append, int4_decode_attention_stacked
+  (read-only, with its L = 1 view int4_decode_attention),
+  int4_decode_attention_stacked_self (read-only, the new token folded in)
+  and kv_append_stacked (the one-token append)
+  (csrc/contiguous_attention.cu); the first equals the third followed by
+  the fourth
 - bf16_decode_attention_stacked, kv_append_stacked_bf16
   (csrc/bf16_attention.cu)
 attend_tile / self_fold_finalize are the plain math of both INT4 attention
@@ -279,26 +282,45 @@ def kernel_operands(q, caches, sm_scale):
 # Contiguous INT4 attention with self fold and in-place append
 # ---------------------------------------------------------------------------
 
-def self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer, lengths,
-                      k_self, v_self, nkq, nkp, nvq, nvp, sm_scale=None,
-                      int8_qk=False):
-    """Plain PyTorch version: one attend_tile over the row's cache, the
-    self fold, then the in-place append of exactly one column."""
+def append_columns_plain(kq, kp, vq, vp, layer, pos, nkq, nkp, nvq, nvp):
+    """Plain PyTorch version of the contiguous append: one indexed
+    assignment per cache, column pos[b] of each (layer, b, h) row; new
+    values (B, H, D/2) u8 and (B, H, 2) f32."""
+    rows = torch.arange(kq.shape[1], device=kq.device)
+    pos = pos.to(torch.int64)
+    kq[layer, rows, :, :, pos] = nkq
+    kp[layer, rows, :, :, pos] = nkp.to(kp.dtype)
+    vq[layer, rows, :, :, pos] = nvq
+    vp[layer, rows, :, :, pos] = nvp.to(vp.dtype)
+
+
+def decode_attention_self_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
+                                lengths, k_self, v_self, sm_scale=None,
+                                int8_qk=False):
+    """Plain PyTorch version of int4_decode_attention_stacked_self: one
+    attend_tile over the row's cache, then the self fold."""
     B, Hq, D = q.shape
     Hkv = kq_all.shape[2]
     qg = q_groups(q, Hkv, sm_scale)
-    lengths = lengths.to(torch.int64)
     state = attend_tile(qg, kq_all[layer], kp_all[layer], vq_all[layer],
-                        vp_all[layer], 0, lengths,
+                        vp_all[layer], 0, lengths.to(torch.int64),
                         empty_state(B, Hkv, qg.shape[2], D, q.device),
                         int8_qk=int8_qk)
     out = self_fold_finalize(qg, k_self.float(), v_self.float(), state)
-    rows = torch.arange(B, device=q.device)
-    kq_all[layer, rows, :, :, lengths] = nkq
-    kp_all[layer, rows, :, :, lengths] = nkp
-    vq_all[layer, rows, :, :, lengths] = nvq
-    vp_all[layer, rows, :, :, lengths] = nvp
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer, lengths,
+                      k_self, v_self, nkq, nkp, nvq, nvp, sm_scale=None,
+                      int8_qk=False):
+    """Plain PyTorch version: the self-folding attention over the row's
+    cache, then the in-place append of exactly one column."""
+    out = decode_attention_self_plain(q, kq_all, kp_all, vq_all, vp_all,
+                                      layer, lengths, k_self, v_self,
+                                      sm_scale, int8_qk)
+    append_columns_plain(kq_all, kp_all, vq_all, vp_all, layer, lengths, nkq,
+                         nkp, nvq, nvp)
+    return out
 
 
 def int4_decode_attention_self_append(q, kq_all, kp_all, vq_all, vp_all,
@@ -416,6 +438,46 @@ def int4_decode_attention(q, kq, kp, vq, vp, lengths, sm_scale=None):
                                          sm_scale=sm_scale)[0]
 
 
+def int4_decode_attention_stacked_self(q, kq_all, kp_all, vq_all, vp_all,
+                                       layer: int, lengths, k_self, v_self,
+                                       *, sm_scale=None, chunk: int = 512,
+                                       int8_qk: bool = False):
+    """Decode attention against layer `layer` of the stacked contiguous
+    INT4 cache, read in place and never written, with the new token's
+    dequantized (k_self, v_self) (B, Hkv, D) f32 folded in as one more
+    online-softmax step.  q: (B, Hq, D) bf16, already per-head
+    Hadamard-rotated like the keys; lengths (B,) cached tokens.  Returns
+    out (B, Hq, D) bf16, normalized; a row of length 0 gives v_self.
+    `chunk` is the reference's sequence tiling: the port tiles by 128
+    tokens whatever it is."""
+    B, Hq, D, (L, Bc, Hkv, D2, S) = check_int4_attention(
+        q, kq_all, kp_all, vq_all, vp_all, layer)
+    require(Bc == B and lengths.shape == (B,), "cache slots, lengths (B,)")
+    require(k_self.shape == (B, Hkv, D) and v_self.shape == (B, Hkv, D),
+            "k_self/v_self (B, Hkv, D)")
+    require(chunk > 0, f"chunk {chunk} must be positive")
+    tensors = (q, kq_all, kp_all, vq_all, vp_all, lengths, k_self, v_self)
+    if not on_cuda(tensors):
+        return decode_attention_self_plain(q, kq_all, kp_all, vq_all, vp_all,
+                                           layer, lengths, k_self, v_self,
+                                           sm_scale, int8_qk)
+    q, G, sm_scale = kernel_operands(q, (kq_all, kp_all, vq_all, vp_all),
+                                     sm_scale)
+    lens = lengths.to(torch.int32).contiguous()
+    k_self, v_self = k_self.float().contiguous(), v_self.float().contiguous()
+    out = torch.empty_like(q)
+    fn = cuda_build.function(
+        "contiguous_attention", "contiguous_attention_read_only_self_launch",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
+            ptr(lens), ptr(k_self), ptr(v_self), ptr(out), B, layer, Hkv, G,
+            D, S, sm_scale, int(int8_qk), recip_f32(127.0), stream(q))
+    cuda_build.check(rc, "int4_decode_attention_stacked_self")
+    LAUNCHES["int4_decode_attention_stacked_self"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # bf16 cache: decode attention returning (out, m, l), and the append
 # ---------------------------------------------------------------------------
@@ -524,3 +586,57 @@ def kv_append_stacked_bf16(k, v, layer: int, pos, nk, nv):
             stream(k))
     cuda_build.check(rc, "kv_append_stacked_bf16")
     LAUNCHES["kv_append_stacked_bf16"] += 1
+
+
+# ---------------------------------------------------------------------------
+# INT4 cache: the one-token append
+# ---------------------------------------------------------------------------
+
+def kv_append_stacked_plain(kq, kp, vq, vp, layer, pos, nkq, nkp, nvq, nvp):
+    """Plain PyTorch version of kv_append_stacked: one indexed assignment
+    per cache, lane-major new values (B, H, D/2, 1) and (B, H, 2, 1)."""
+    append_columns_plain(kq, kp, vq, vp, layer, pos, nkq[..., 0],
+                         nkp[..., 0], nvq[..., 0], nvp[..., 0])
+    return kq, kp, vq, vp
+
+
+def kv_append_stacked(kq, kp, vq, vp, layer: int, pos, nkq, nkp, nvq, nvp):
+    """Write one token per sequence into layer `layer` of the stacked INT4
+    cache in place (the reference aliases it): kq/vq (L, B, H, D/2, S) u8,
+    kp/vp (L, B, H, 2, S) f32; pos (B,) write positions (< S); nkq/nvq
+    (B, H, D/2, 1) u8 and nkp/nvp (B, H, 2, 1) f32, lane-major as the
+    reference takes them.  Exactly column pos[b] is written (the reference
+    rewrites the 128-lane window around it with the same values).  A
+    position at or past S raises on the CPU; on the card, where checking it
+    would stall the host, the kernel writes nothing there.  Returns the four
+    caches."""
+    require(kq.dim() == 5 and vq.shape == kq.shape, "codes (L, B, H, D/2, S)")
+    L, B, H, D2, S = kq.shape
+    require(kp.shape == (L, B, H, 2, S) and vp.shape == kp.shape,
+            "params (L, B, H, 2, S)")
+    require(0 <= layer < L, f"layer {layer} out of range {L}")
+    require(pos.shape == (B,), "pos (B,)")
+    require(nkq.shape == (B, H, D2, 1) and nvq.shape == nkq.shape
+            and nkp.shape == (B, H, 2, 1) and nvp.shape == nkp.shape,
+            "nkq/nvq (B, H, D/2, 1), nkp/nvp (B, H, 2, 1)")
+    require(kq.dtype == torch.uint8 and vq.dtype == torch.uint8
+            and kp.dtype == torch.float32 and vp.dtype == torch.float32,
+            "cache dtypes: u8 codes, f32 params")
+    tensors = (kq, kp, vq, vp, pos, nkq, nkp, nvq, nvp)
+    if not on_cuda(tensors):
+        require(bool((pos < S).all()), f"positions must be < max_seq {S}")
+        return kv_append_stacked_plain(kq, kp, vq, vp, layer, pos, nkq, nkp,
+                                       nvq, nvp)
+    require(all(t.is_contiguous() for t in (kq, kp, vq, vp)),
+            "caches must be contiguous (they are updated in place)")
+    p = pos.to(torch.int32).contiguous()
+    nkq, nvq = nkq.to(torch.uint8).contiguous(), nvq.to(torch.uint8).contiguous()
+    nkp, nvp = nkp.float().contiguous(), nvp.float().contiguous()
+    fn = cuda_build.function(
+        "contiguous_attention", "kv_append_launch",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(ptr(kq), ptr(kp), ptr(vq), ptr(vp), ptr(p), ptr(nkq), ptr(nkp),
+            ptr(nvq), ptr(nvp), B, layer, H, D2, S, stream(kq))
+    cuda_build.check(rc, "kv_append_stacked")
+    LAUNCHES["kv_append_stacked"] += 1
+    return kq, kp, vq, vp

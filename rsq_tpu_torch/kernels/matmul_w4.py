@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from rsq_tpu_torch.core.numerics import div, mul_div_const
+from rsq_tpu_torch.core.numerics import div, folded_mul_div, mul_div_const
 from rsq_tpu_torch.kernels import LAUNCHES, cuda_build, on_cuda, ptr, require, stream
 
 
@@ -125,24 +125,44 @@ def w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs):
     return (acc * xs[:, :, None] * scale2).to(torch.bfloat16)
 
 
-def _w4a4_launch(x, wp_all, scale2, layer, xs, name):
+def _w4a4_split(tiles: int, K: int):
+    """K split of the W4A4 kernel's decode launches: up to 8 slices (one
+    thread-block cluster) until ~2 blocks per SM of the 132 are in flight.
+    Returns (nsplit, kchunk), kchunk a multiple of 64."""
+    nsplit = max(1, min(8, -(-264 // tiles), -(-K // 64)))
+    kchunk = -(-K // nsplit)
+    kchunk = -(-kchunk // 64) * 64
+    return -(-K // kchunk), kchunk
+
+
+def _w4a4_launch(x, wp_all, scale2, layer, xs, clip_ratio, name):
     """Launch csrc/w4a4_matmul.cu on layer `layer` of wp_all, read in place;
-    counts one launch of `name`."""
-    require(x.shape[1] % 4 == 0 and wp_all.shape[2] % 4 == 0,
-            "kernel needs K % 4 == 0, Nh % 4 == 0")
-    require(x.is_contiguous() and wp_all.is_contiguous(), "contiguous inputs")
-    fn = cuda_build.function(
-        "w4a4_matmul", "w4a4_matmul_paired_stacked_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    counts one launch of `name`.  xs: the (M, 1) per-token scales, or None
+    to have the kernel compute them from x and clip_ratio (only at M <= 16;
+    the caller passes them beyond).  One kernel launch, no workspace: a K
+    split (decode shapes) is reduced inside it."""
     M, K = x.shape
     Nh = wp_all.shape[2]
-    out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
-    acc = torch.empty((M, 2, Nh), dtype=torch.int32, device=x.device)
-    # split K so the small-N decode shapes still launch ~4 blocks per SM
-    _, kchunk = _split_k(-(-Nh // 512) * -(-M // 8), K)
+    require(K % 8 == 0 and Nh % 4 == 0, "kernel needs K % 8 == 0, Nh % 4 == 0")
+    require(x.is_contiguous() and wp_all.is_contiguous(), "contiguous inputs")
+    require(x.data_ptr() % 16 == 0, "kernel needs a 16-byte aligned x")
     wl = wp_all[layer]
-    rc = fn(ptr(x), ptr(xs), ptr(wl), ptr(scale2), ptr(acc), ptr(out),
-            M, K, Nh, kchunk, stream(x))
+    require(wl.data_ptr() % 4 == 0, "kernel needs 4-byte aligned weights")
+    # 16-byte weight copies where rows allow them, else 4-byte ones
+    wide16 = Nh % 16 == 0 and wl.data_ptr() % 16 == 0
+    # tiles of 8 activation rows per block: 1 at decode, up to 8 at prefill
+    mt = 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+    require(xs is not None or mt <= 2, "the kernel computes xs at M <= 16 only")
+    nsplit, kchunk = (_w4a4_split(-(-Nh // 128) * -(-M // (8 * mt)), K)
+                      if mt <= 2 else (1, K))
+    out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
+    fn = cuda_build.function(
+        "w4a4_matmul", "w4a4_matmul_paired_stacked_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(ptr(x), None if xs is None else ptr(xs), ptr(wl), ptr(scale2),
+            ptr(out), M, K, Nh, kchunk, nsplit, mt, int(wide16),
+            folded_mul_div(clip_ratio, 7.0), stream(x))
     cuda_build.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -154,8 +174,9 @@ def w4a4_matmul_paired_stacked(x, wp_all, scale2, layer: int,
     wp_all (L, K, Nh) uint8, read in place (no copy of the layer).
     x: (M, K) bf16; scale2: (2, Nh) f32 for this layer.  Returns the
     plane-paired output (M, 2, Nh) bf16.  The per-token scale is computed
-    here in plain PyTorch (one pass over x); the kernel quantizes x with it,
-    multiplies in the integer domain and applies the dual-scale epilogue.
+    inside the kernel at decode (M <= 16) and here in plain PyTorch beyond
+    (one pass over x); the kernel quantizes x with it, multiplies in the
+    integer domain and applies the dual-scale epilogue.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     require(x.dim() == 2 and wp_all.dim() == 3, "x (M, K), wp_all (L, K, Nh)")
     M, K = x.shape
@@ -166,12 +187,13 @@ def w4a4_matmul_paired_stacked(x, wp_all, scale2, layer: int,
     require(wp_all.dtype == torch.uint8, "wp_all must be uint8")
     require(scale2.shape == (2, Nh) and scale2.dtype == torch.float32,
              f"scale2 must be (2, {Nh}) f32")
-    xs = token_scales(x, clip_ratio)
     if not on_cuda((x, wp_all, scale2)):
-        return w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs)
-    return _w4a4_launch(x, wp_all, scale2.contiguous(), layer,
-                        xs.reshape(M).contiguous(),
-                        "w4a4_matmul_paired_stacked")
+        return w4a4_matmul_paired_stacked_plain(
+            x, wp_all, scale2, layer, token_scales(x, clip_ratio))
+    # at decode (M <= 16) the kernel computes the token scales itself
+    xs = None if M <= 16 else token_scales(x, clip_ratio).reshape(M)
+    return _w4a4_launch(x, wp_all, scale2.contiguous(), layer, xs,
+                        clip_ratio, "w4a4_matmul_paired_stacked")
 
 
 def w4a4_matmul_paired_plain(x, w_packed, scale2, xs):
@@ -197,14 +219,17 @@ def w4a4_matmul_paired(x, w_packed, scale2, token_scale=None, *,
     require(w_packed.dtype == torch.uint8, "w_packed must be uint8")
     require(scale2.shape == (2, Nh) and scale2.dtype == torch.float32,
             f"scale2 must be (2, {Nh}) f32")
-    if token_scale is None:
+    xs = None if token_scale is None else token_scale.float().reshape(M, 1)
+    if not on_cuda((x, w_packed, scale2) + (() if xs is None else (xs,))):
+        return w4a4_matmul_paired_plain(
+            x, w_packed, scale2,
+            token_scales(x, clip_ratio) if xs is None else xs)
+    # at decode (M <= 16) the kernel computes the token scales itself
+    if xs is None and M > 16:
         xs = token_scales(x, clip_ratio)
-    else:
-        xs = token_scale.float().reshape(M, 1)
-    if not on_cuda((x, w_packed, scale2, xs)):
-        return w4a4_matmul_paired_plain(x, w_packed, scale2, xs)
     return _w4a4_launch(x.contiguous(), w_packed[None], scale2.contiguous(),
-                        0, xs.reshape(M).contiguous(), "w4a4_matmul_paired")
+                        0, None if xs is None else xs.reshape(M).contiguous(),
+                        clip_ratio, "w4a4_matmul_paired")
 
 
 def w4a4_matmul(x, w_packed, scale, token_scale=None, *,
@@ -466,14 +491,19 @@ def w8_matmul(x, w8, scale):
              "x bf16, w8 int8, scale (N,) f32")
     if not on_cuda((x, w8, scale)):
         return w8_matmul_plain(x, w8, scale)
-    require(N % 4 == 0, "kernel needs N % 4 == 0")
+    require(N % 4 == 0 and K % 8 == 0, "kernel needs N % 4 == 0, K % 8 == 0")
     require(x.is_contiguous() and w8.is_contiguous() and scale.is_contiguous(),
              "contiguous inputs")
+    require(x.data_ptr() % 16 == 0 and w8.data_ptr() % 4 == 0,
+            "kernel needs a 16-byte aligned x and 4-byte aligned weights")
+    # 16-byte weight copies where rows allow them, else 4-byte ones
+    wide16 = N % 16 == 0 and w8.data_ptr() % 16 == 0
     fn = cuda_build.function(
         "w8_matmul", "w8_matmul_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    rc = fn(ptr(x), ptr(w8), ptr(scale), ptr(out), M, K, N, stream(x))
+    rc = fn(ptr(x), ptr(w8), ptr(scale), ptr(out), M, K, N, int(wide16),
+            stream(x))
     cuda_build.check(rc, "w8_matmul")
     LAUNCHES["w8_matmul"] += 1
     return out

@@ -14,6 +14,8 @@ version here:
   in the reference.
 - int4_paged_decode_attention_stacked (and its L = 1 view
   int4_paged_decode_attention): read-only attention, any page size.
+- int4_paged_decode_attention_stacked_self: the same, with the new token
+  folded in; the first kernel equals it followed by paged_append_pool.
 - paged_append_pool: the in-place append of one token per row.  With pages
   under 128 tokens the serving step runs these two instead of the first,
   as the reference does.
@@ -75,31 +77,14 @@ def _check_table(page_table, lengths, B):
 def paged_self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
                             page_table, lengths, k_self, v_self, nkq, nkp,
                             nvq, nvp, sm_scale=None, int8_qk=False):
-    """Plain PyTorch version: gather each row's pages, one attend_tile over
-    them, the self fold, then the in-place append."""
-    B, Hq, D = q.shape
-    Hkv = kq_all.shape[2]
-    page = kq_all.shape[-1]
-    qg = q_groups(q, Hkv, sm_scale)
-    dev = q.device
-    state = empty_state(B, Hkv, qg.shape[2], D, dev)
-    lengths = lengths.to(torch.int64)
-    ptab = page_table.to(torch.int64)
-    state = attend_tile(qg, _gather(kq_all[layer], ptab),
-                        _gather(kp_all[layer], ptab),
-                        _gather(vq_all[layer], ptab),
-                        _gather(vp_all[layer], ptab), 0, lengths, state,
-                        int8_qk=int8_qk)
-    out = self_fold_finalize(qg, k_self.float(), v_self.float(), state)
-    # the reference aliases the pools (input_output_aliases): update in place
-    rows = torch.arange(B, device=dev)
-    slot = torch.clamp(lengths // page, max=ptab.shape[1] - 1)
-    wpid, col = ptab[rows, slot], lengths % page
-    kq_all[layer, wpid, :, :, col] = nkq
-    kp_all[layer, wpid, :, :, col] = nkp
-    vq_all[layer, wpid, :, :, col] = nvq
-    vp_all[layer, wpid, :, :, col] = nvp
-    return out.reshape(B, Hq, D).to(q.dtype)
+    """Plain PyTorch version: the self-folding read over each row's pages,
+    then the in-place append (the reference aliases the pools)."""
+    out = paged_read_self_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
+                                page_table, lengths, k_self, v_self,
+                                sm_scale, int8_qk)
+    paged_append_plain(kq_all, kp_all, vq_all, vp_all, layer, page_table,
+                       lengths, nkq, nkp, nvq, nvp)
+    return out
 
 
 def int4_paged_decode_attention_self_append(q, kq_all, kp_all, vq_all,
@@ -159,10 +144,10 @@ def int4_paged_decode_attention_self_append(q, kq_all, kp_all, vq_all,
 # Read-only paged attention (any page size) and the in-place pool append
 # ---------------------------------------------------------------------------
 
-def paged_read_plain(q, kq_all, kp_all, vq_all, vp_all, layer, page_table,
-                     lengths, sm_scale=None, int8_qk=False):
-    """Plain PyTorch version of int4_paged_decode_attention_stacked: gather
-    each row's pages, one attend_tile over them, out = acc / l."""
+def _paged_state(q, kq_all, kp_all, vq_all, vp_all, layer, page_table,
+                 lengths, sm_scale, int8_qk):
+    """Gather each row's pages, one attend_tile over them: (f32 q groups,
+    online-softmax state)."""
     B, _, D = q.shape
     Hkv = kq_all.shape[2]
     qg = q_groups(q, Hkv, sm_scale)
@@ -174,7 +159,27 @@ def paged_read_plain(q, kq_all, kp_all, vq_all, vp_all, layer, page_table,
                         lengths.to(torch.int64),
                         empty_state(B, Hkv, qg.shape[2], D, q.device),
                         int8_qk=int8_qk)
+    return qg, state
+
+
+def paged_read_plain(q, kq_all, kp_all, vq_all, vp_all, layer, page_table,
+                     lengths, sm_scale=None, int8_qk=False):
+    """Plain PyTorch version of int4_paged_decode_attention_stacked: the
+    tile over each row's pages, out = acc / l."""
+    _, state = _paged_state(q, kq_all, kp_all, vq_all, vp_all, layer,
+                            page_table, lengths, sm_scale, int8_qk)
     return finalize_read(q, state)[0]
+
+
+def paged_read_self_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
+                          page_table, lengths, k_self, v_self, sm_scale=None,
+                          int8_qk=False):
+    """Plain PyTorch version of int4_paged_decode_attention_stacked_self:
+    the tile over each row's pages, then the self fold."""
+    qg, state = _paged_state(q, kq_all, kp_all, vq_all, vp_all, layer,
+                             page_table, lengths, sm_scale, int8_qk)
+    out = self_fold_finalize(qg, k_self.float(), v_self.float(), state)
+    return out.reshape(q.shape).to(q.dtype)
 
 
 def int4_paged_decode_attention_stacked(q, kq_all, kp_all, vq_all, vp_all,
@@ -217,6 +222,46 @@ def int4_paged_decode_attention(q, kq, kp, vq, vp, page_table, lengths,
     return int4_paged_decode_attention_stacked(
         q, kq[None], kp[None], vq[None], vp[None], 0, page_table, lengths,
         sm_scale=sm_scale)
+
+
+def int4_paged_decode_attention_stacked_self(q, kq_all, kp_all, vq_all,
+                                             vp_all, layer: int, page_table,
+                                             lengths, k_self, v_self, *,
+                                             sm_scale=None,
+                                             int8_qk: bool = False):
+    """int4_paged_decode_attention_stacked with the new token's dequantized
+    (k_self, v_self) (B, Hkv, D) f32 folded in as one more online-softmax
+    step; the pool is only read (lengths counts cached tokens: the new one
+    is not in the pool yet).  Any page size.  Returns out (B, Hq, D) bf16,
+    normalized; a row of length 0 gives v_self."""
+    B, Hq, D, (L, P, Hkv, D2, page) = check_int4_attention(
+        q, kq_all, kp_all, vq_all, vp_all, layer)
+    _check_table(page_table, lengths, B)
+    require(k_self.shape == (B, Hkv, D) and v_self.shape == (B, Hkv, D),
+            "k_self/v_self (B, Hkv, D)")
+    tensors = (q, kq_all, kp_all, vq_all, vp_all, page_table, lengths,
+               k_self, v_self)
+    if not on_cuda(tensors):
+        return paged_read_self_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
+                                     page_table, lengths, k_self, v_self,
+                                     sm_scale, int8_qk)
+    q, G, sm_scale = kernel_operands(q, (kq_all, kp_all, vq_all, vp_all),
+                                     sm_scale)
+    ptab = page_table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    k_self, v_self = k_self.float().contiguous(), v_self.float().contiguous()
+    out = torch.empty_like(q)
+    fn = cuda_build.function(
+        "paged_attention", "paged_attention_read_only_self_launch",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
+            ptr(ptab), ptr(lens), ptr(k_self), ptr(v_self), ptr(out), B,
+            layer, P, Hkv, G, D, page, ptab.shape[1], sm_scale, int(int8_qk),
+            recip_f32(127.0), stream(q))
+    cuda_build.check(rc, "int4_paged_decode_attention_stacked_self")
+    LAUNCHES["int4_paged_decode_attention_stacked_self"] += 1
+    return out
 
 
 def paged_append_plain(kq, kp, vq, vp, layer, page_table, positions, nkq, nkp,

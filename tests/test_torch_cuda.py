@@ -422,3 +422,319 @@ def test_paged_append_matches_plain(dev, page):
         assert torch.equal(g.cpu(), c)
     assert torch.equal(cpu[0][1, 5, :, :, 2], nkq[0])
     assert torch.equal(cpu[0][1, 5, :, :, 7], nkq[1])
+
+
+# ---------------------------------------------------------------------------
+# Rows 3, 7, 18, and every INT4 attention kernel on a poisoned cache
+# ---------------------------------------------------------------------------
+
+def _poisoned(arrays, live):
+    """Copies of (kq, kp, vq, vp) with every cell outside `live` 0xFF (codes)
+    or NaN (parameters): a read of one shows as NaN in the output."""
+    return [torch.where(live, a, torch.full((), 255 if a.dtype == torch.uint8
+                                            else float("nan"), dtype=a.dtype,
+                                            device=a.device))
+            for a in arrays]
+
+
+def _slots_live(lengths, S, keep=0):
+    pos = torch.arange(S, device=lengths.device)
+    return (pos[None, :] < lengths.long()[:, None] + keep)[None, :, None,
+                                                           None, :]
+
+
+def _pages_live(ptab, lengths, P, page, keep=0):
+    """Cells of tokens t < lengths[b] + keep through each row's table; all
+    else (pages no table names included) is poisoned."""
+    t = torch.arange(ptab.shape[1] * page, device=ptab.device)
+    valid = t[None, :] < lengths.long()[:, None] + keep
+    pid = ptab.long()[:, t // page]
+    col = (t % page).expand_as(pid)
+    live = torch.zeros((P, page), dtype=torch.bool, device=ptab.device)
+    live[pid[valid], col[valid]] = True
+    return live[None, :, None, None, :]
+
+
+def _new_token(rng, B, H, D):
+    """(k_self, v_self) and (nkq, nkp, nvq, nvp) of one new token."""
+    selfs, new = [], []
+    for _ in range(2):
+        c, p = TKV.asym_quant_pack_head(torch.from_numpy(
+            rng.standard_normal((B, H, D)).astype(np.float32)))
+        selfs.append(TKV.unpack_dequant_head(c, p))
+        new += [c, p]
+    return selfs, new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_decode_attention_self_matches_plain(dev, int8_qk):
+    """Row 3: lengths 0, 1, mid-tile and S - 1; out within 2 bf16
+    roundings (the length-0 row: v_self), the same on a poisoned cache;
+    the cache is not written."""
+    rng = np.random.default_rng(7 + int8_qk)
+    L, B, Hkv, G, D, S = 2, 4, 8, 4, 128, 320
+    cache = _int4_cache(rng, L, B, Hkv, D, S)
+    lengths = torch.tensor([0, 1, 200, S - 1], dtype=torch.int32)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    selfs, _ = _new_token(rng, B, Hkv, D)
+    want = TKV.int4_decode_attention_stacked_self(q, *cache, 1, lengths,
+                                                  *selfs, int8_qk=int8_qk)
+    gpu = [t.to(dev) for t in cache]
+    args = (lengths.to(dev), *(t.to(dev) for t in selfs))
+    got = TKV.int4_decode_attention_stacked_self(q.to(dev), *gpu, 1, *args,
+                                                 int8_qk=int8_qk)
+    bad = TKV.int4_decode_attention_stacked_self(
+        q.to(dev), *_poisoned(gpu, _slots_live(lengths.to(dev), S)), 1,
+        *args, int8_qk=int8_qk)
+    for g in (got, bad):
+        np.testing.assert_allclose(f32(g), f32(want), rtol=4 * BF16_EPS,
+                                   atol=2e-3)
+    for g, c in zip(gpu, cache):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_kv_append_matches_plain(dev):
+    """Row 7: positions 0, 127, 128 and S - 1; whole caches bit-equal."""
+    rng = np.random.default_rng(8)
+    L, B, H, D, S = 2, 4, 8, 128, 384
+    cache = _int4_cache(rng, L, B, H, D, S)
+    pos = torch.tensor([0, 127, 128, S - 1], dtype=torch.int32)
+    _, new = _new_token(rng, B, H, D)
+    new = [t[..., None] for t in new]
+    gpu = [t.to(dev) for t in cache]
+    TKV.kv_append_stacked(*cache, 1, pos, *new)
+    TKV.kv_append_stacked(*gpu, 1, pos.to(dev), *(t.to(dev) for t in new))
+    for g, c in zip(gpu, cache):
+        assert torch.equal(g.cpu(), c)
+    assert torch.equal(cache[0][1, 3, :, :, S - 1], new[0][3, :, :, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 64, 512])
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_paged_read_self_matches_plain(dev, page, int8_qk):
+    """Row 18 at any page size, a table in no pool order: lengths 0, 1,
+    mid-page and the last position; out within 2 bf16 roundings, the same
+    on a poisoned pool; the pool is not written."""
+    rng = np.random.default_rng(3 * page + int8_qk)
+    L, B, Hkv, G, D = 2, 4, 8, 4, 128
+    NP = -(-700 // page)
+    P = B * NP + 1
+    kq, kp = _paged_pool(rng, L, P, Hkv, D, page)
+    vq, vp = _paged_pool(rng, L, P, Hkv, D, page)
+    pools = [kq, kp, vq, vp]
+    ptab = torch.from_numpy(rng.permutation(P)[:B * NP].reshape(B, NP)
+                            .astype(np.int32))
+    lengths = torch.tensor([0, 1, (NP // 2) * page + page // 2 + 1,
+                            NP * page - 1], dtype=torch.int32)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    selfs, _ = _new_token(rng, B, Hkv, D)
+    want = TPKV.int4_paged_decode_attention_stacked_self(
+        q, *pools, 1, ptab, lengths, *selfs, int8_qk=int8_qk)
+    gpu = [t.to(dev) for t in pools]
+    args = (ptab.to(dev), lengths.to(dev), *(t.to(dev) for t in selfs))
+    got = TPKV.int4_paged_decode_attention_stacked_self(
+        q.to(dev), *gpu, 1, *args, int8_qk=int8_qk)
+    bad = TPKV.int4_paged_decode_attention_stacked_self(
+        q.to(dev), *_poisoned(gpu, _pages_live(args[0], args[1], P, page)),
+        1, *args, int8_qk=int8_qk)
+    for g in (got, bad):
+        np.testing.assert_allclose(f32(g), f32(want), rtol=4 * BF16_EPS,
+                                   atol=2e-3)
+    for g, c in zip(gpu, pools):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [2, 4, 17, 19])
+def test_attention_ignores_poisoned_bytes(dev, row):
+    """Rows 2, 4 (contiguous) and 17, 19 (paged, page 16 and 128): on a copy
+    of the cache whose unreachable bytes are poisoned (every page no table
+    names, every column at or past a row's length but the one an append
+    writes), the output equals the plain version on the clean cache, and
+    the appended column is written as on the clean cache."""
+    rng = np.random.default_rng(40 + row)
+    L, B, Hkv, G, D = 2, 4, 8, 4, 128
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    selfs, new = _new_token(rng, B, Hkv, D)
+    appends = row in (4, 19)
+    if row in (2, 4):
+        S = 320
+        cache = _int4_cache(rng, L, B, Hkv, D, S)
+        lengths = torch.tensor([300, 1, 0, S - 1], dtype=torch.int32)
+        table = ()
+        live = _slots_live(lengths.to(dev), S, keep=int(appends))
+    else:
+        page = 16 if row == 17 else 128
+        NP = -(-320 // page)
+        P = B * NP + 1
+        cache = [*_paged_pool(rng, L, P, Hkv, D, page),
+                 *_paged_pool(rng, L, P, Hkv, D, page)]
+        table = (torch.from_numpy(rng.permutation(P)[:B * NP]
+                                  .reshape(B, NP).astype(np.int32)),)
+        lengths = torch.tensor([NP * page - page // 2, 1, 0, 2 * page + 3],
+                               dtype=torch.int32)
+        live = _pages_live(table[0].to(dev), lengths.to(dev), P, page,
+                           keep=int(appends))
+    fn = {2: TKV.int4_decode_attention_stacked, 4:
+          TKV.int4_decode_attention_self_append,
+          17: TPKV.int4_paged_decode_attention_stacked,
+          19: TPKV.int4_paged_decode_attention_self_append}[row]
+    rest = (*table, lengths) + ((*selfs, *new) if appends else ())
+    clean = [t.clone() for t in cache]
+    want = fn(q, *clean, 1, *rest)
+    want = want[0] if row == 2 else want
+    bad_cache = _poisoned([t.to(dev) for t in cache], live)
+    got = fn(q.to(dev), *bad_cache, 1, *(t.to(dev) for t in rest))
+    got = got[0] if row == 2 else got
+    live_rows = (lengths > 0).numpy() if row in (2, 17) else slice(None)
+    np.testing.assert_allclose(f32(got)[live_rows], f32(want)[live_rows],
+                               rtol=4 * BF16_EPS, atol=2e-3)
+    if appends:                      # the written column, as on the clean run
+        for g, c in zip(bad_cache, _poisoned([t.to(dev) for t in clean],
+                                             live)):
+            g, c = g.cpu(), c.cpu()
+            if g.dtype == torch.float32:
+                g, c = g.view(torch.int32), c.view(torch.int32)
+            assert torch.equal(g, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_self_append_kernel_equals_fold_then_append(dev, paged):
+    """On the card: row 4 == row 3 then row 7, row 19 == row 18 then row 21
+    (the same device fold, so out bit-equal; caches bit-equal)."""
+    rng = np.random.default_rng(50 + paged)
+    L, B, Hkv, G, D = 2, 4, 8, 4, 128
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16).to(dev)
+    selfs, new = _new_token(rng, B, Hkv, D)
+    selfs, new = [t.to(dev) for t in selfs], [t.to(dev) for t in new]
+    if paged:
+        page = 128
+        cache = [*_paged_pool(rng, L, 9, Hkv, D, page),
+                 *_paged_pool(rng, L, 9, Hkv, D, page)]
+        ptab = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 8]],
+                            dtype=torch.int32, device=dev)
+        lengths = torch.tensor([200, 0, 127, 128], dtype=torch.int32,
+                               device=dev)
+    else:
+        cache = _int4_cache(rng, L, B, Hkv, D, 320)
+        lengths = torch.tensor([200, 0, 127, 319], dtype=torch.int32,
+                               device=dev)
+    fused = [t.to(dev) for t in cache]
+    pair = [t.to(dev) for t in cache]
+    if paged:
+        out_f = TPKV.int4_paged_decode_attention_self_append(
+            q, *fused, 1, ptab, lengths, *selfs, *new)
+        out_s = TPKV.int4_paged_decode_attention_stacked_self(
+            q, *pair, 1, ptab, lengths, *selfs)
+        TPKV.paged_append_pool(*pair, 1, ptab, lengths, *new)
+    else:
+        out_f = TKV.int4_decode_attention_self_append(q, *fused, 1, lengths,
+                                                      *selfs, *new)
+        out_s = TKV.int4_decode_attention_stacked_self(q, *pair, 1, lengths,
+                                                       *selfs)
+        TKV.kv_append_stacked(*pair, 1, lengths, *(t[..., None] for t in new))
+    assert torch.equal(out_f, out_s)
+    for a, b in zip(fused, pair):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core matmuls (rows 16, 12, 11): ragged shapes, M tiles, K split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 9, 40])
+@pytest.mark.parametrize("N", [1000, 1168])
+def test_w8_ragged_matches_plain(dev, M, N):
+    """Row 16 off its main shape: N = 1000 takes 4-byte weight copies,
+    N = 1168 16-byte ones with a ragged last 128-column tile; M = 9 and 40
+    keep 2 and 4 row tiles per block."""
+    rng = np.random.default_rng(M + N)
+    K = 512
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    sc = torch.from_numpy(rng.uniform(0.001, 0.01, N).astype(np.float32))
+    want = f32(TMW.w8_matmul(x, w8, sc))
+    got = f32(TMW.w8_matmul(x.to(dev), w8.to(dev), sc.to(dev)))
+    np.testing.assert_allclose(got, want, rtol=2 * BF16_EPS,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 9, 40, 1024])
+@pytest.mark.parametrize("Nh", [164, 500, 1168])
+def test_w4a4_tiles_match_plain(dev, M, Nh):
+    """Rows 12/11 bit-equal at every row-tile size (1, 2, 4, 8 tiles of 8
+    rows), with 4-byte (Nh = 164, 500) and 16-byte (1168) weight copies and
+    a ragged last tile; K = 1024 is split at small M."""
+    rng = np.random.default_rng(M + Nh)
+    K = 1024
+    wp = torch.from_numpy(rng.integers(0, 256, (2, K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want = TMW.w4a4_matmul_paired_stacked(x, wp, s2, 1)
+    got = TMW.w4a4_matmul_paired_stacked(x.to(dev), wp.to(dev), s2.to(dev), 1)
+    np.testing.assert_array_equal(f32(got), f32(want))
+
+
+@pytest.mark.cuda
+def test_w4a4_split_back_to_back(dev):
+    """Two K-split calls queued back to back on one stream with different
+    inputs, then a call on another shape: each call reduces its split in
+    its own clusters and leaves no state behind, so each is bit-equal to
+    its plain version."""
+    rng = np.random.default_rng(77)
+    cases = []
+    for M, K, Nh in ((8, 4096, 256), (8, 4096, 256), (5, 2048, 512)):
+        wp = torch.from_numpy(rng.integers(0, 256, (1, K, Nh), dtype=np.uint8))
+        s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh))
+                               / (7 * np.sqrt(K))).astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                             ).to(torch.bfloat16)
+        cases.append((x, wp, s2))
+    on_dev = [[t.to(dev) for t in c] for c in cases]
+    torch.cuda.synchronize()
+    got = [TMW.w4a4_matmul_paired_stacked(x, wp, s2, 0) for x, wp, s2 in on_dev]
+    for g, (x, wp, s2) in zip(got, cases):
+        np.testing.assert_array_equal(
+            f32(g), f32(TMW.w4a4_matmul_paired_stacked(x, wp, s2, 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16, 17])
+def test_w4a4_token_scale_in_kernel(dev, M):
+    """At M <= 16 the kernel finds the per-token scale itself (absmax over
+    the cluster's K slices, times the folded clip constant); beyond, the
+    wrapper passes it.  Bit-equal either way, at clip 0.9, with a row of
+    zeros (scale 1) and with a caller-given token_scale."""
+    rng = np.random.default_rng(90 + M)
+    K, Nh = 4096, 2048
+    wp = torch.from_numpy(rng.integers(0, 256, (K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    xn = rng.standard_normal((M, K)).astype(np.float32)
+    xn[0] = 0.0
+    x = torch.from_numpy(xn).to(torch.bfloat16)
+    ts = torch.from_numpy(rng.uniform(0.2, 0.6, (M, 1)).astype(np.float32))
+    for tok in (None, ts):
+        want = TMW.w4a4_matmul_paired(x, wp, s2, tok, clip_ratio=0.9)
+        got = TMW.w4a4_matmul_paired(x.to(dev), wp.to(dev), s2.to(dev),
+                                     None if tok is None else tok.to(dev),
+                                     clip_ratio=0.9)
+        np.testing.assert_array_equal(f32(got), f32(want))
+    np.testing.assert_array_equal(
+        f32(TMW.w4a4_matmul_paired_stacked(x.to(dev), wp[None].to(dev),
+                                           s2.to(dev), 0, clip_ratio=0.9)),
+        f32(TMW.w4a4_matmul_paired_stacked(x, wp[None], s2, 0,
+                                           clip_ratio=0.9)))

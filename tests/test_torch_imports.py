@@ -4,6 +4,7 @@ points that default to device="cuda" raise instead of running on the CPU."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import rsq_tpu_torch
+from rsq_tpu_torch.kernels import KERNELS
 from rsq_tpu_torch.kernels import paged_kv as TPKV
 from rsq_tpu_torch.models.config import ModelConfig
 from rsq_tpu_torch.serving import engine as TE
@@ -42,9 +44,11 @@ def test_modules_import_without_jax_or_rsq_tpu():
         "from rsq_tpu_torch.serving.paged import (prefill_paged, "
         "decode_step_paged)\n"
         "from rsq_tpu_torch.kernels.paged_kv import (paged_append_pool, "
-        "int4_paged_decode_attention_stacked)\n"
-        "from rsq_tpu_torch.kernels.kv_cache import "
-        "int4_decode_attention_stacked\n"
+        "int4_paged_decode_attention_stacked, "
+        "int4_paged_decode_attention_stacked_self)\n"
+        "from rsq_tpu_torch.kernels.kv_cache import ("
+        "int4_decode_attention_stacked, int4_decode_attention_stacked_self, "
+        "kv_append_stacked)\n"
         "from rsq_tpu_torch.kernels.matmul_w4 import (w4a4_matmul_paired, "
         "w4_matmul_paired, w4_affine_matmul)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
@@ -101,3 +105,85 @@ def test_chip_smoke_refuses_without_cuda():
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+# Each pallas_call site of rsq_tpu/kernels, by the function it sits in, and
+# the port's kernel that replaces it.  _self_append_flat_call (row 20) is the
+# one-grid-step twin of row 19 and shares its kernel.
+PALLAS_SITES = {
+    ("kv_cache.py", "decode_prep"): "decode_prep",
+    ("kv_cache.py", "int4_decode_attention_stacked"):
+        "int4_decode_attention_stacked",
+    ("kv_cache.py", "int4_decode_attention_stacked_self"):
+        "int4_decode_attention_stacked_self",
+    ("kv_cache.py", "int4_decode_attention_self_append"):
+        "int4_decode_attention_self_append",
+    ("kv_cache.py", "bf16_decode_attention_stacked"):
+        "bf16_decode_attention_stacked",
+    ("kv_cache.py", "kv_append_stacked_bf16"): "kv_append_stacked_bf16",
+    ("kv_cache.py", "kv_append_stacked"): "kv_append_stacked",
+    ("matmul_w4.py", "w4_matmul"): "w4_matmul",
+    ("matmul_w4.py", "w4_matmul_paired"): "w4_matmul_paired",
+    ("matmul_w4.py", "w4_affine_matmul"): "w4_affine_matmul",
+    ("matmul_w4.py", "w4a4_matmul_paired"): "w4a4_matmul_paired",
+    ("matmul_w4.py", "w4a4_matmul_paired_stacked"):
+        "w4a4_matmul_paired_stacked",
+    ("matmul_w4.py", "w4_matmul_paired_stacked"): "w4_matmul_paired_stacked",
+    ("matmul_w4.py", "w4_affine_matmul_stacked"): "w4_affine_matmul_stacked",
+    ("matmul_w4.py", "w16_matmul_stacked"): "w16_matmul_stacked",
+    ("matmul_w4.py", "w8_matmul"): "w8_matmul",
+    ("paged_kv.py", "int4_paged_decode_attention_stacked"):
+        "int4_paged_decode_attention_stacked",
+    ("paged_kv.py", "int4_paged_decode_attention_stacked_self"):
+        "int4_paged_decode_attention_stacked_self",
+    ("paged_kv.py", "int4_paged_decode_attention_self_append"):
+        "int4_paged_decode_attention_self_append",
+    ("paged_kv.py", "_self_append_flat_call"):
+        "int4_paged_decode_attention_self_append",
+    ("paged_kv.py", "paged_append_pool"): "paged_append_pool",
+}
+
+
+def _pallas_sites():
+    """Every pl.pallas_call in rsq_tpu/kernels/*.py, read as text (nothing
+    of rsq_tpu is imported): {(file, enclosing def): "file:def line"}."""
+    sites = {}
+    for path in sorted((ROOT / "rsq_tpu" / "kernels").glob("*.py")):
+        fn = None
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            m = re.match(r"def (\w+)\(", line)
+            if m:
+                fn = (m.group(1), i)
+            if "pl.pallas_call(" in line:
+                assert fn is not None, f"{path.name}:{i} outside a def"
+                key = (path.name, fn[0])
+                assert key not in sites, f"two sites in {key}"
+                sites[key] = f"rsq_tpu/kernels/{path.name}:{fn[1]}"
+    return sites
+
+
+def _smoke_replaces():
+    """{kernel name: the "replaces" and "also_replaces" strings} of the
+    kernel checks in chip_smoke.py."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    found = {}
+    for m in re.finditer(
+            r'"name": "(\w+)",\s*"route": "cuda",\s*"source": "[^"]+",\s*'
+            r'"replaces": "([^"]+)"(?:,\s*"also_replaces": "([^"]+)")?', text):
+        found.setdefault(m.group(1), set()).update(
+            s for s in m.group(2, 3) if s)
+    return found
+
+
+def test_kernel_table_complete():
+    """All 21 pallas_call sites map to a port kernel in KERNELS, and each
+    has a check in chip_smoke.py that names the site's function as the one
+    it replaces."""
+    sites = _pallas_sites()
+    assert len(sites) == 21
+    assert set(sites) == set(PALLAS_SITES)
+    assert set(PALLAS_SITES.values()) == set(KERNELS)
+    replaces = _smoke_replaces()
+    for key, where in sites.items():
+        name = PALLAS_SITES[key]
+        assert where in replaces.get(name, ()), (key, name, where)
