@@ -372,39 +372,8 @@ def _int4_cache(dev, g, L, B, H, D, S):
     return [cache[n] for n in ("kq", "kp", "vq", "vp")]
 
 
-# The poisoned-cache checks: every byte a kernel must not read is 0xFF
-# (codes) or NaN (parameters), so a stray read shows as NaN in the output,
-# which must still equal the plain version on the clean cache.
-
-def poisoned(arrays, live):
-    """Copies of (kq, kp, vq, vp) with every cell outside the mask `live`
-    (broadcast over the layer, head and D/2-or-2 axes) poisoned."""
-    return [torch.where(live, a, torch.full((), 255 if a.dtype == torch.uint8
-                                            else math.nan, dtype=a.dtype,
-                                            device=a.device))
-            for a in arrays]
-
-
-def slots_live(lengths, S, keep=0):
-    """Contiguous cache (L, B, H, x, S): the first lengths[b] + keep
-    columns of each row (keep = 1 spares the column an append writes)."""
-    pos = torch.arange(S, device=lengths.device)
-    return (pos[None, :] < lengths.long()[:, None] + keep)[None, :, None,
-                                                           None, :]
-
-
-def pages_live(ptab, lengths, P, page, keep=0):
-    """Page pool (L, P, H, x, page): the cells holding tokens t <
-    lengths[b] + keep of each row b through its table; every page no table
-    names, and every other cell, is poisoned."""
-    t = torch.arange(ptab.shape[1] * page, device=ptab.device)
-    valid = t[None, :] < lengths.long()[:, None] + keep
-    pid = ptab.long()[:, t // page]
-    col = (t % page).expand_as(pid)
-    live = torch.zeros((P, page), dtype=torch.bool, device=ptab.device)
-    live[pid[valid], col[valid]] = True
-    return live[None, :, None, None, :]
-
+# The poisoned-cache checks (rsq_tpu_torch/kernels/poison.py): every byte
+# a kernel must not read is 0xFF or NaN, so a stray read shows as NaN.
 
 def bits(t):
     """A tensor's bits, so that equal NaNs compare equal."""
@@ -416,6 +385,7 @@ def bits(t):
 def check_paged_attention(dev, g, cfg):
     from rsq_tpu_torch.kernels import kv_cache as KV
     from rsq_tpu_torch.kernels import paged_kv as PKV
+    from rsq_tpu_torch.kernels.poison import pages_live, poisoned
     L, Hkv, D = cfg.num_layers, cfg.num_key_value_heads, cfg.head_dim_
     Hq, page, B, NP = cfg.num_attention_heads, 512, 8, 2
     P = B * NP + 1
@@ -493,6 +463,7 @@ TIMING_LAYERS = 8          # > the 50 MB L2, as the serving step reads it
 
 def check_contiguous_attention(dev, g, cfg):
     from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels.poison import poisoned, slots_live
     Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
     L, B, S = 2, len(CONTIG_LENGTHS), 1024
     cache = _int4_cache(dev, g, L, B, Hkv, D, S)
@@ -904,12 +875,22 @@ def _attn_err(got, want, what):
     return float(e.max())
 
 
-def check_decode_attention(dev, g, cfg):
-    """Row 2, the read-only contiguous attention of the per-layer path, at
-    the shapes of row 4 (B=8, S=1024, CONTIG_LENGTHS), default QK as the
-    path runs it, and int8_qk: out, m and l against the plain version; the
-    cache is only read."""
+def _self_token(KV, dev, g, B, Hkv, D):
+    """The new token's dequantized (k_self, v_self), (B, Hkv, D) f32."""
+    return tuple(KV.unpack_dequant_head(*KV.asym_quant_pack_head(
+        torch.randn((B, Hkv, D), generator=g, device=dev))) for _ in range(2))
+
+
+def check_decode_attention(dev, g, cfg, fold=False):
+    """Row 2 (fold False), the read-only contiguous attention of the
+    per-layer path, or row 3 (fold True), the same with the new token
+    folded in, which no serving path runs (none of the reference's does):
+    at row 4's shapes (B=8, S=1024, CONTIG_LENGTHS, the length-0 row
+    included), default QK as the path runs it, and int8_qk, against the
+    plain version, and bit-equal on a poisoned cache; row 2 also m and l.
+    The cache is only read."""
     from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels.poison import poisoned, slots_live
     Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
     G = Hq // Hkv
     L, B, S = 2, len(CONTIG_LENGTHS), 1024
@@ -919,20 +900,29 @@ def check_decode_attention(dev, g, cfg):
     live = lengths > 0
     q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
         torch.bfloat16)
+    selfs = _self_token(KV, dev, g, B, Hkv, D) if fold else ()
+    kernel = (KV.int4_decode_attention_stacked_self if fold
+              else KV.int4_decode_attention_stacked)
+    plain = KV.decode_attention_self_plain if fold else KV.decode_attention_plain
+    what = "decode attention" + (" self" if fold else "")
     bad_cache = poisoned(cache, slots_live(lengths, S))
     err = 0.0
     for int8_qk in (False, True):
-        got = KV.int4_decode_attention_stacked(q, *cache, L - 1, lengths,
-                                               int8_qk=int8_qk)
-        bad = KV.int4_decode_attention_stacked(q, *bad_cache, L - 1, lengths,
-                                               int8_qk=int8_qk)
-        want = KV.decode_attention_plain(q, *cache, L - 1, lengths,
-                                         int8_qk=int8_qk)
+        got, bad, want = (
+            [r] if fold else list(r)
+            for r in (kernel(q, *cache, L - 1, lengths, *selfs, int8_qk=int8_qk),
+                      kernel(q, *bad_cache, L - 1, lengths, *selfs,
+                             int8_qk=int8_qk),
+                      plain(q, *cache, L - 1, lengths, *selfs, int8_qk=int8_qk)))
         torch.cuda.synchronize()
-        err = max(err, _attn_err(got[0][live], want[0][live],
-                                 f"decode attention int8_qk={int8_qk}"))
+        # row 3's length-0 row is v_self; row 2's is checked below
+        rows = slice(None) if fold else live
+        err = max(err, _attn_err(got[0][rows], want[0][rows],
+                                 f"{what} int8_qk={int8_qk}"))
         ensure(all(torch.equal(bits(a), bits(b)) for a, b in zip(bad, got)),
-               "decode attention on the poisoned cache differs")
+               f"{what} on the poisoned cache differs")
+        if fold:
+            continue
         # m, l: f32 sums in another order; a logit is a difference of two
         # products, so 1e-5 relative + 1e-5
         for a, w in zip(got[1:], want[1:]):
@@ -944,25 +934,35 @@ def check_decode_attention(dev, g, cfg):
                and bool((got[2][~live] == 0).all()),
                "decode attention length-0 row")
     ensure(all(torch.equal(a, b) for a, b in zip(cache, before)),
-           "decode attention wrote the cache")
+           f"{what} wrote the cache")
     del cache, before, bad_cache
     big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
-    t = timings(rotating(lambda j: KV.int4_decode_attention_stacked(
-                    q, *big, j, lengths), TIMING_LAYERS),
-                rotating(lambda j: KV.decode_attention_plain(
-                    q, *big, j, lengths), TIMING_LAYERS))
+    t = timings(rotating(lambda j: kernel(q, *big, j, lengths, *selfs),
+                         TIMING_LAYERS),
+                rotating(lambda j: plain(q, *big, j, lengths, *selfs),
+                         TIMING_LAYERS))
     del big
     tokens = sum(CONTIG_LENGTHS)
     nbytes = (tokens * Hkv * 2 * (D // 2 + 8)                   # cached k, v
-              + 2 * B * Hq * D * 2                              # q, out
-              + 2 * B * Hkv * G * 4 + B * 4)                    # m, l, lengths
+              + 2 * B * Hq * D * 2 + B * 4                      # q, out, lengths
+              + (2 * B * Hkv * D * 4 if fold                    # k_self, v_self
+                 else 2 * B * Hkv * G * 4))                     # m, l
     b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
+    common = {"max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+              "unit": "one decode layer, B=8, S=1024, lengths "
+                      + ",".join(map(str, CONTIG_LENGTHS)) + ", bf16 QK"}
+    if fold:
+        return {"name": "int4_decode_attention_stacked_self", "route": "cuda",
+                "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
+                "replaces": "rsq_tpu/kernels/kv_cache.py:580", **common,
+                "path": "none: no serving path of rsq_tpu runs it",
+                "check": "out within 4*2^-8 rel + 2e-3 of the plain version "
+                         "(the length-0 row: v_self), int8_qk off and on; "
+                         "cache unchanged; on a poisoned cache out bit-equal "
+                         "to the clean run"}
     return {"name": "int4_decode_attention_stacked", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
-            "replaces": "rsq_tpu/kernels/kv_cache.py:497",
-            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-            "unit": "one decode layer, B=8, S=1024, lengths "
-                    + ",".join(map(str, CONTIG_LENGTHS)) + ", bf16 QK",
+            "replaces": "rsq_tpu/kernels/kv_cache.py:497", **common,
             "check": "out within 4*2^-8 rel + 2e-3 where the length is not "
                      "0, m and l within 1e-5 rel + 1e-5, int8_qk off and "
                      "on; length-0 row NaN, -inf, 0; cache unchanged; on a "
@@ -984,117 +984,76 @@ def _paged_pool(dev, g, L, Hkv, D, page, lengths):
     return pool, perm.reshape(B, NP)
 
 
-def check_paged_read_only(dev, g, cfg):
-    """Row 17, the read-only paged attention of the page-16 path, at pages
-    16 (the main path: a 128-token tile spans 8 pages) and 64, over tables
-    in no pool order, default QK and int8_qk; the top-level times are page
-    16's."""
+def check_paged_read_only(dev, g, cfg, fold=False):
+    """Row 17 (fold False), the read-only paged attention of the page-16
+    path, at pages 16 (the main path: a 128-token tile spans 8 pages) and
+    64; or row 18 (fold True), the same with the new token folded in, which
+    no serving path runs, at pages 16 and 512.  Over tables in no pool
+    order, default QK and int8_qk, on a clean and a poisoned pool; the
+    top-level times are page 16's."""
+    from rsq_tpu_torch.kernels import kv_cache as KV
     from rsq_tpu_torch.kernels import paged_kv as PKV
+    from rsq_tpu_torch.kernels.poison import pages_live, poisoned
     Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
     B = len(PAGED_LENGTHS)
     lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
     q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
         torch.bfloat16)
+    selfs = _self_token(KV, dev, g, B, Hkv, D) if fold else ()
+    kernel = (PKV.int4_paged_decode_attention_stacked_self if fold
+              else PKV.int4_paged_decode_attention_stacked)
+    plain = PKV.paged_read_self_plain if fold else PKV.paged_read_plain
+    what = "paged read" + (" self" if fold else "")
     tokens = sum(PAGED_LENGTHS)
     cases, err = [], 0.0
-    for page in (16, 64):
+    for page in (16, 512) if fold else (16, 64):
         pool, ptab = _paged_pool(dev, g, TIMING_LAYERS, Hkv, D, page,
                                  PAGED_LENGTHS)
         before = [t.clone() for t in pool]
         bad_pool = poisoned(pool, pages_live(ptab, lengths, pool[0].shape[1],
                                              page))
         for int8_qk in (False, True):
-            got = PKV.int4_paged_decode_attention_stacked(
-                q, *pool, 1, ptab, lengths, int8_qk=int8_qk)
-            bad = PKV.int4_paged_decode_attention_stacked(
-                q, *bad_pool, 1, ptab, lengths, int8_qk=int8_qk)
-            want = PKV.paged_read_plain(q, *pool, 1, ptab, lengths,
-                                        int8_qk=int8_qk)
+            got = kernel(q, *pool, 1, ptab, lengths, *selfs, int8_qk=int8_qk)
+            bad = kernel(q, *bad_pool, 1, ptab, lengths, *selfs,
+                         int8_qk=int8_qk)
+            want = plain(q, *pool, 1, ptab, lengths, *selfs, int8_qk=int8_qk)
             torch.cuda.synchronize()
-            err = max(err, _attn_err(got, want, f"paged read page {page} "
+            err = max(err, _attn_err(got, want, f"{what} page {page} "
                                                 f"int8_qk={int8_qk}"),
-                      _attn_err(bad, want, f"paged read page {page} "
+                      _attn_err(bad, want, f"{what} page {page} "
                                            f"int8_qk={int8_qk}, poisoned"))
         ensure(all(torch.equal(a, b) for a, b in zip(pool, before)),
-               "paged read wrote the pool")
+               f"{what} wrote the pool")
         del before, bad_pool
-        t = timings(rotating(lambda j: PKV.int4_paged_decode_attention_stacked(
-                        q, *pool, j, ptab, lengths), TIMING_LAYERS),
-                    rotating(lambda j: PKV.paged_read_plain(
-                        q, *pool, j, ptab, lengths), TIMING_LAYERS))
+        t = timings(rotating(lambda j: kernel(q, *pool, j, ptab, lengths,
+                                              *selfs), TIMING_LAYERS),
+                    rotating(lambda j: plain(q, *pool, j, ptab, lengths,
+                                             *selfs), TIMING_LAYERS))
         nbytes = (tokens * Hkv * 2 * (D // 2 + 8) + 2 * B * Hq * D * 2
+                  + (2 * B * Hkv * D * 4 if fold else 0)        # k/v_self
                   + ptab.numel() * 4 + B * 4)
         b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
         cases.append({"page": page, **t, "bound_ms": b, "bound_by": by})
         del pool
+    common = {"max_abs_err": err,
+              **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+              "library_ms": None,
+              "unit": "one decode layer, B=8, page 16, lengths "
+                      + ",".join(map(str, PAGED_LENGTHS)) + ", bf16 QK",
+              "check": "out within 4*2^-8 rel + 2e-3, pages "
+                       + " and ".join(str(c["page"]) for c in cases)
+                       + ", int8_qk off and on, also on a poisoned pool; "
+                         "pool unchanged",
+              "cases": cases}
+    if fold:
+        return {"name": "int4_paged_decode_attention_stacked_self",
+                "route": "cuda", "source": "rsq_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "rsq_tpu/kernels/paged_kv.py:324", **common,
+                "path": "none: no serving path of rsq_tpu runs it"}
     return {"name": "int4_paged_decode_attention_stacked", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "rsq_tpu/kernels/paged_kv.py:283",
-            "max_abs_err": err,
-            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by")},
-            "library_ms": None,
-            "unit": "one decode layer, B=8, page 16, lengths "
-                    + ",".join(map(str, PAGED_LENGTHS)) + ", bf16 QK",
-            "check": "out within 4*2^-8 rel + 2e-3, pages 16 and 64, int8_qk "
-                     "off and on, also on a poisoned pool; pool unchanged",
-            "cases": cases}
-
-
-def check_decode_attention_self(dev, g, cfg):
-    """Row 3, the read-only contiguous attention with the new token folded
-    in, at row 2's shapes (B=8, S=1024, CONTIG_LENGTHS, the length-0 row
-    included), int8_qk off and on, on a clean and on a poisoned cache.  No
-    serving path runs it (none of the reference's does)."""
-    from rsq_tpu_torch.kernels import kv_cache as KV
-    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
-    L, B, S = 2, len(CONTIG_LENGTHS), 1024
-    cache = _int4_cache(dev, g, L, B, Hkv, D, S)
-    before = [t.clone() for t in cache]
-    bad_cache = poisoned(cache, slots_live(
-        torch.tensor(CONTIG_LENGTHS, device=dev), S))
-    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
-    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
-        torch.bfloat16)
-    k_self, v_self = (KV.unpack_dequant_head(*KV.asym_quant_pack_head(
-        torch.randn((B, Hkv, D), generator=g, device=dev))) for _ in range(2))
-    err = 0.0
-    for int8_qk in (False, True):
-        got = KV.int4_decode_attention_stacked_self(
-            q, *cache, L - 1, lengths, k_self, v_self, int8_qk=int8_qk)
-        bad = KV.int4_decode_attention_stacked_self(
-            q, *bad_cache, L - 1, lengths, k_self, v_self, int8_qk=int8_qk)
-        want = KV.decode_attention_self_plain(
-            q, *cache, L - 1, lengths, k_self, v_self, int8_qk=int8_qk)
-        torch.cuda.synchronize()
-        err = max(err, _attn_err(got, want, f"decode attention self "
-                                            f"int8_qk={int8_qk}"),
-                  _attn_err(bad, want, f"decode attention self int8_qk="
-                                       f"{int8_qk}, poisoned cache"))
-    ensure(all(torch.equal(a, b) for a, b in zip(cache, before)),
-           "decode attention self wrote the cache")
-    del cache, before, bad_cache
-    big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
-    t = timings(rotating(lambda j: KV.int4_decode_attention_stacked_self(
-                    q, *big, j, lengths, k_self, v_self), TIMING_LAYERS),
-                rotating(lambda j: KV.decode_attention_self_plain(
-                    q, *big, j, lengths, k_self, v_self), TIMING_LAYERS))
-    del big
-    tokens = sum(CONTIG_LENGTHS)
-    nbytes = (tokens * Hkv * 2 * (D // 2 + 8)                   # cached k, v
-              + 2 * B * Hq * D * 2                              # q, out
-              + 2 * B * Hkv * D * 4 + B * 4)                    # self, lengths
-    b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
-    return {"name": "int4_decode_attention_stacked_self", "route": "cuda",
-            "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
-            "replaces": "rsq_tpu/kernels/kv_cache.py:580",
-            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-            "path": "none: no serving path of rsq_tpu runs it",
-            "unit": "one decode layer, B=8, S=1024, lengths "
-                    + ",".join(map(str, CONTIG_LENGTHS)) + ", bf16 QK",
-            "check": "out within 4*2^-8 rel + 2e-3 of the plain version "
-                     "(the length-0 row: v_self), int8_qk off and on, also "
-                     "on a poisoned cache; cache unchanged"}
+            "replaces": "rsq_tpu/kernels/paged_kv.py:283", **common}
 
 
 def check_kv_append(dev, g, cfg):
@@ -1140,72 +1099,6 @@ def check_kv_append(dev, g, cfg):
             "library": "indexed assignment cache[layer, b_idx, :, :, pos] = ...",
             "unit": "one decode layer, B=8, S=1024",
             "check": "whole caches bit-equal to the plain version"}
-
-
-def check_paged_read_self(dev, g, cfg):
-    """Row 18, the read-only paged attention with the new token folded in,
-    at row 17's shapes and pages 16 and 512, over tables in no pool order,
-    int8_qk off and on, on a clean and on a poisoned pool; the top-level
-    times are page 16's.  No serving path runs it."""
-    from rsq_tpu_torch.kernels import kv_cache as KV
-    from rsq_tpu_torch.kernels import paged_kv as PKV
-    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
-    B = len(PAGED_LENGTHS)
-    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
-    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
-        torch.bfloat16)
-    k_self, v_self = (KV.unpack_dequant_head(*KV.asym_quant_pack_head(
-        torch.randn((B, Hkv, D), generator=g, device=dev))) for _ in range(2))
-    tokens = sum(PAGED_LENGTHS)
-    cases, err = [], 0.0
-    for page in (16, 512):
-        pool, ptab = _paged_pool(dev, g, TIMING_LAYERS, Hkv, D, page,
-                                 PAGED_LENGTHS)
-        before = [t.clone() for t in pool]
-        bad_pool = poisoned(pool, pages_live(ptab, lengths, pool[0].shape[1],
-                                             page))
-        for int8_qk in (False, True):
-            got = PKV.int4_paged_decode_attention_stacked_self(
-                q, *pool, 1, ptab, lengths, k_self, v_self, int8_qk=int8_qk)
-            bad = PKV.int4_paged_decode_attention_stacked_self(
-                q, *bad_pool, 1, ptab, lengths, k_self, v_self,
-                int8_qk=int8_qk)
-            want = PKV.paged_read_self_plain(q, *pool, 1, ptab, lengths,
-                                             k_self, v_self, int8_qk=int8_qk)
-            torch.cuda.synchronize()
-            err = max(err, _attn_err(got, want, f"paged read self page "
-                                                f"{page} int8_qk={int8_qk}"),
-                      _attn_err(bad, want, f"paged read self page {page} "
-                                           f"int8_qk={int8_qk}, poisoned"))
-        ensure(all(torch.equal(a, b) for a, b in zip(pool, before)),
-               "paged read self wrote the pool")
-        del before, bad_pool
-        t = timings(rotating(
-                        lambda j: PKV.int4_paged_decode_attention_stacked_self(
-                            q, *pool, j, ptab, lengths, k_self, v_self),
-                        TIMING_LAYERS),
-                    rotating(lambda j: PKV.paged_read_self_plain(
-                        q, *pool, j, ptab, lengths, k_self, v_self),
-                        TIMING_LAYERS))
-        nbytes = (tokens * Hkv * 2 * (D // 2 + 8) + 2 * B * Hq * D * 2
-                  + 2 * B * Hkv * D * 4 + ptab.numel() * 4 + B * 4)
-        b, by = bound_ms(nbytes, 2.0 * 2 * tokens * Hq * D, "bf16")
-        cases.append({"page": page, **t, "bound_ms": b, "bound_by": by})
-        del pool
-    return {"name": "int4_paged_decode_attention_stacked_self",
-            "route": "cuda", "source": "rsq_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "rsq_tpu/kernels/paged_kv.py:324",
-            "max_abs_err": err,
-            **{k: cases[0][k] for k in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by")},
-            "library_ms": None,
-            "path": "none: no serving path of rsq_tpu runs it",
-            "unit": "one decode layer, B=8, page 16, lengths "
-                    + ",".join(map(str, PAGED_LENGTHS)) + ", bf16 QK",
-            "check": "out within 4*2^-8 rel + 2e-3, pages 16 and 512, "
-                     "int8_qk off and on, also on a poisoned pool; pool "
-                     "unchanged",
-            "cases": cases}
 
 
 def check_paged_append(dev, g, cfg):
@@ -2018,9 +1911,9 @@ def main(argv):
                lambda: check_decode_attention(dev, g, cfg),
                lambda: check_paged_read_only(dev, g, cfg),
                lambda: check_paged_append(dev, g, cfg),
-               lambda: check_decode_attention_self(dev, g, cfg),
+               lambda: check_decode_attention(dev, g, cfg, fold=True),
                lambda: check_kv_append(dev, g, cfg),
-               lambda: check_paged_read_self(dev, g, cfg)):
+               lambda: check_paged_read_only(dev, g, cfg, fold=True)):
         t0 = time.perf_counter()
         kernels.append(fn())
         torch.cuda.empty_cache()

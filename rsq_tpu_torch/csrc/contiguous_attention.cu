@@ -98,6 +98,7 @@ kv_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
   const int b = bh / H;
   const size_t head = (size_t)layer * B * H + bh;   // (layer, b, h)
   const int col = pos[b];
+  if ((unsigned)col >= (unsigned)S) return;   // writes nothing past the row
   if (x < D2) {
     (is_v ? vq : kq)[(head * D2 + x) * S + col] =
         (is_v ? nvq : nkq)[(size_t)bh * D2 + x];

@@ -44,7 +44,8 @@
 //   - At decode (M <= 16, no caller-given scale) the per-token scale is
 //     computed here: each block takes the absmax of its rows over its K
 //     slice, the cluster exchanges them, and xs = absmax * f32(clip *
-//     f32(1/7)) (1 where 0), as core/numerics.mul_div_const rounds it.
+//     f32(1/7)) (1 where 0), as core/numerics.mul_div_const rounds it; a
+//     NaN in a row makes its xs, and so its output, NaN.
 //     Larger M takes xs from the caller (one pass over x there, instead of
 //     one per column tile here).
 
@@ -53,9 +54,13 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "smem_ring.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace smem_ring;
 
 constexpr int THREADS = 128;        // 4 warps
 constexpr int NT = 128;             // packed columns per block, 32 per warp
@@ -64,30 +69,9 @@ constexpr int ST = 4;               // pipeline stages
 constexpr int XP = KS + 32;         // quantized x row pitch (conflict-free)
 constexpr int MAXSPLIT = 8;         // a portable cluster
 
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes, int chunk) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (chunk == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Byte offset of (row, col) in a weight tile: 16-byte chunks XOR-swizzled
-// by bits 3-4 of the row (a thread's 8 rows share them; the 4 t differ).
+// Byte offset of (row, col) in a weight tile: thread t reads rows 8t..8t+7
 __device__ __forceinline__ int wswz(int row, int col) {
-  return row * NT + ((((col >> 4) ^ (((row >> 3) & 3) << 1))) << 4) + (col & 15);
+  return swizzle<NT, 3>(row, col);
 }
 
 __device__ __forceinline__ void mma(int (&c)[4], uint32_t a0, uint32_t a1,
@@ -196,8 +180,11 @@ w4a4_main(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xs,
     // neighbouring threads per row, loads issued 8 at a time
     constexpr int TPR = THREADS / ROWS;
     const int r = tid / TPR, m = m0 + r, nq = (k1 - k0) / 4;
+    // |x| as bits: non-negative floats order as their bits do, and a NaN
+    // orders above them all, so it reaches xs and the row's output is NaN
+    // as in the plain version
     if (tid < ROWS) s_amax[tid] = 0.0f;
-    float a = 0.0f;
+    unsigned a = 0u;
     if (m < M)
       for (int q0 = tid % TPR; q0 < nq; q0 += 8 * TPR) {
         uint2 v[8];
@@ -212,20 +199,21 @@ w4a4_main(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xs,
         for (int j = 0; j < 8; ++j) {
           const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v[j]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a = fmaxf(a, fabsf(__bfloat162float(b[i])));
+          for (int i = 0; i < 4; ++i)
+            a = max(a, __float_as_uint(fabsf(__bfloat162float(b[i]))));
         }
       }
     __syncthreads();
-    // non-negative floats order as their bits do
-    atomicMax(reinterpret_cast<int*>(&s_amax[r]), __float_as_int(a));
+    atomicMax(reinterpret_cast<int*>(&s_amax[r]), (int)a);
     if (nsplit > 1) {
       cg::cluster_group cluster = cg::this_cluster();
       cluster.sync();
       if (tid < ROWS) {
-        float mx = 0.0f;
+        unsigned mx = 0u;
         for (int rank = 0; rank < nsplit; ++rank)
-          mx = fmaxf(mx, *cluster.map_shared_rank(&s_amax[tid], rank));
-        s_xs[tid] = mx;
+          mx = max(mx, __float_as_uint(
+                           *cluster.map_shared_rank(&s_amax[tid], rank)));
+        s_xs[tid] = __uint_as_float(mx);
       }
     } else {
       __syncthreads();
@@ -361,13 +349,8 @@ int launch(const void* x, const void* xs, const void* wp, const void* scale2,
            float cmul, cudaStream_t s) {
   const int smem = ST * (KS * NT + 8 * MT * KS * 2) + 8 * MT * XP;
   static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        w4a4_main<MT, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
-  }
+  cudaError_t e = allow_smem(w4a4_main<MT, CH>, smem, ready);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((Nh + NT - 1) / NT, (M + 8 * MT - 1) / (8 * MT), nsplit);
   cfg.blockDim = dim3(THREADS);
@@ -380,7 +363,7 @@ int launch(const void* x, const void* xs, const void* wp, const void* scale2,
   attr[0].val.clusterDim.z = nsplit;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
+  e = cudaLaunchKernelEx(
       &cfg, w4a4_main<MT, CH>, static_cast<const __nv_bfloat16*>(x),
       static_cast<const float*>(xs), static_cast<const uint8_t*>(wp),
       static_cast<const float*>(scale2), static_cast<__nv_bfloat16*>(out), M,

@@ -36,7 +36,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "smem_ring.cuh"
+
 namespace {
+
+using namespace smem_ring;
 
 constexpr int THREADS = 128;        // 4 warps
 constexpr int NT = 128;             // output columns per block
@@ -44,30 +48,9 @@ constexpr int KS = 64;              // k rows per pipeline stage
 constexpr int STAGES = 4;
 constexpr int XP = KS * 2 + 32;     // x row pitch in bytes (conflict-free reads)
 
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes, int chunk) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (chunk == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Byte offset of (row, col) in a weight tile: 16-byte chunks XOR-swizzled
-// by bits 2-3 of the row (a thread's 4 rows differ there).
+// Byte offset of (row, col) in a weight tile: thread t reads rows 4t..4t+3
 __device__ __forceinline__ int wswz(int row, int col) {
-  return row * NT + ((((col >> 4) ^ (((row >> 2) & 3) << 1))) << 4) + (col & 15);
+  return swizzle<NT, 2>(row, col);
 }
 
 // Signed byte c of w (pre-XORed with 0x80808080) as a float, exactly.
@@ -200,12 +183,8 @@ int launch(const void* x, const void* w8, const void* scale, void* out, int M,
            int K, int N, cudaStream_t s) {
   const int smem = STAGES * (KS * NT + 8 * MT * XP);
   static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        w8_main<MT, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
-  }
+  const cudaError_t e = allow_smem(w8_main<MT, CH>, smem, ready);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((N + NT - 1) / NT, (M + 8 * MT - 1) / (8 * MT));
   w8_main<MT, CH><<<grid, THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w8),

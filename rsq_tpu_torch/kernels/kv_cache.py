@@ -607,9 +607,9 @@ def kv_append_stacked(kq, kp, vq, vp, layer: int, pos, nkq, nkp, nvq, nvp):
     (B, H, D/2, 1) u8 and nkp/nvp (B, H, 2, 1) f32, lane-major as the
     reference takes them.  Exactly column pos[b] is written (the reference
     rewrites the 128-lane window around it with the same values).  A
-    position at or past S raises on the CPU; on the card, where checking it
-    would stall the host, the kernel writes nothing there.  Returns the four
-    caches."""
+    position outside [0, S) raises on the CPU; on the card, where checking
+    it would stall the host, the kernel writes nothing for that row.
+    Returns the four caches."""
     require(kq.dim() == 5 and vq.shape == kq.shape, "codes (L, B, H, D/2, S)")
     L, B, H, D2, S = kq.shape
     require(kp.shape == (L, B, H, 2, S) and vp.shape == kp.shape,
@@ -624,7 +624,8 @@ def kv_append_stacked(kq, kp, vq, vp, layer: int, pos, nkq, nkp, nvq, nvp):
             "cache dtypes: u8 codes, f32 params")
     tensors = (kq, kp, vq, vp, pos, nkq, nkp, nvq, nvp)
     if not on_cuda(tensors):
-        require(bool((pos < S).all()), f"positions must be < max_seq {S}")
+        require(bool(((pos >= 0) & (pos < S)).all()),
+                f"positions must be in [0, max_seq {S})")
         return kv_append_stacked_plain(kq, kp, vq, vp, layer, pos, nkq, nkp,
                                        nvq, nvp)
     require(all(t.is_contiguous() for t in (kq, kp, vq, vp)),

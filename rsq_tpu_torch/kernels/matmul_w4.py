@@ -97,12 +97,13 @@ def token_scales(x: torch.Tensor, clip_ratio: float = 1.0) -> torch.Tensor:
     return torch.where(absmax == 0, 1.0, mul_div_const(absmax, clip_ratio, 7.0))
 
 
-def _split_k(blocks: int, K: int):
-    """Split K (in 64-value steps) until ~4 blocks per SM of the 132 are in
-    flight, for a launch of `blocks` output blocks: (nsplit, kchunk), kchunk
-    a multiple of 64 and nsplit = ceil(K / kchunk).  The kernels sum the
-    slices in a fixed order, so runs repeat bit for bit."""
-    nsplit = max(1, min(-(-528 // blocks), -(-K // 64)))
+def _split_k(blocks: int, K: int, per_sm: int = 4, most: int = 1 << 30):
+    """Split K (in 64-value steps, into at most `most` slices) until about
+    `per_sm` blocks per SM of the 132 are in flight, for a launch of
+    `blocks` output blocks: (nsplit, kchunk), kchunk a multiple of 64 and
+    nsplit = ceil(K / kchunk).  The kernels sum the slices in a fixed
+    order, so runs repeat bit for bit."""
+    nsplit = max(1, min(-(-132 * per_sm // blocks), most, -(-K // 64)))
     kchunk = -(-K // nsplit)
     kchunk = -(-kchunk // 64) * 64
     return -(-K // kchunk), kchunk
@@ -125,16 +126,6 @@ def w4a4_matmul_paired_stacked_plain(x, wp_all, scale2, layer, xs):
     return (acc * xs[:, :, None] * scale2).to(torch.bfloat16)
 
 
-def _w4a4_split(tiles: int, K: int):
-    """K split of the W4A4 kernel's decode launches: up to 8 slices (one
-    thread-block cluster) until ~2 blocks per SM of the 132 are in flight.
-    Returns (nsplit, kchunk), kchunk a multiple of 64."""
-    nsplit = max(1, min(8, -(-264 // tiles), -(-K // 64)))
-    kchunk = -(-K // nsplit)
-    kchunk = -(-kchunk // 64) * 64
-    return -(-K // kchunk), kchunk
-
-
 def _w4a4_launch(x, wp_all, scale2, layer, xs, clip_ratio, name):
     """Launch csrc/w4a4_matmul.cu on layer `layer` of wp_all, read in place;
     counts one launch of `name`.  xs: the (M, 1) per-token scales, or None
@@ -153,8 +144,10 @@ def _w4a4_launch(x, wp_all, scale2, layer, xs, clip_ratio, name):
     # tiles of 8 activation rows per block: 1 at decode, up to 8 at prefill
     mt = 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
     require(xs is not None or mt <= 2, "the kernel computes xs at M <= 16 only")
-    nsplit, kchunk = (_w4a4_split(-(-Nh // 128) * -(-M // (8 * mt)), K)
-                      if mt <= 2 else (1, K))
+    # a K split is reduced in one thread-block cluster: 8 blocks at most,
+    # about 2 blocks per SM
+    nsplit, kchunk = (_split_k(-(-Nh // 128) * -(-M // (8 * mt)), K,
+                               per_sm=2, most=8) if mt <= 2 else (1, K))
     out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
     fn = cuda_build.function(
         "w4a4_matmul", "w4a4_matmul_paired_stacked_launch",

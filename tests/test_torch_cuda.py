@@ -14,6 +14,7 @@ import torch
 from rsq_tpu_torch.kernels import kv_cache as TKV
 from rsq_tpu_torch.kernels import matmul_w4 as TMW
 from rsq_tpu_torch.kernels import paged_kv as TPKV
+from rsq_tpu_torch.kernels.poison import pages_live, poisoned, slots_live
 
 BF16_EPS = 2.0 ** -8
 
@@ -428,33 +429,6 @@ def test_paged_append_matches_plain(dev, page):
 # Rows 3, 7, 18, and every INT4 attention kernel on a poisoned cache
 # ---------------------------------------------------------------------------
 
-def _poisoned(arrays, live):
-    """Copies of (kq, kp, vq, vp) with every cell outside `live` 0xFF (codes)
-    or NaN (parameters): a read of one shows as NaN in the output."""
-    return [torch.where(live, a, torch.full((), 255 if a.dtype == torch.uint8
-                                            else float("nan"), dtype=a.dtype,
-                                            device=a.device))
-            for a in arrays]
-
-
-def _slots_live(lengths, S, keep=0):
-    pos = torch.arange(S, device=lengths.device)
-    return (pos[None, :] < lengths.long()[:, None] + keep)[None, :, None,
-                                                           None, :]
-
-
-def _pages_live(ptab, lengths, P, page, keep=0):
-    """Cells of tokens t < lengths[b] + keep through each row's table; all
-    else (pages no table names included) is poisoned."""
-    t = torch.arange(ptab.shape[1] * page, device=ptab.device)
-    valid = t[None, :] < lengths.long()[:, None] + keep
-    pid = ptab.long()[:, t // page]
-    col = (t % page).expand_as(pid)
-    live = torch.zeros((P, page), dtype=torch.bool, device=ptab.device)
-    live[pid[valid], col[valid]] = True
-    return live[None, :, None, None, :]
-
-
 def _new_token(rng, B, H, D):
     """(k_self, v_self) and (nkq, nkp, nvq, nvp) of one new token."""
     selfs, new = [], []
@@ -486,7 +460,7 @@ def test_decode_attention_self_matches_plain(dev, int8_qk):
     got = TKV.int4_decode_attention_stacked_self(q.to(dev), *gpu, 1, *args,
                                                  int8_qk=int8_qk)
     bad = TKV.int4_decode_attention_stacked_self(
-        q.to(dev), *_poisoned(gpu, _slots_live(lengths.to(dev), S)), 1,
+        q.to(dev), *poisoned(gpu, slots_live(lengths.to(dev), S)), 1,
         *args, int8_qk=int8_qk)
     for g in (got, bad):
         np.testing.assert_allclose(f32(g), f32(want), rtol=4 * BF16_EPS,
@@ -510,6 +484,28 @@ def test_kv_append_matches_plain(dev):
     for g, c in zip(gpu, cache):
         assert torch.equal(g.cpu(), c)
     assert torch.equal(cache[0][1, 3, :, :, S - 1], new[0][3, :, :, 0])
+
+
+@pytest.mark.cuda
+def test_kv_append_skips_positions_outside_the_cache(dev):
+    """Row 7 on the card with positions S and -1 (which the CPU refuses):
+    those rows write nothing, the others their one column; every other
+    byte of all four caches, layer 0 and the last row's neighbours
+    included, is unchanged."""
+    rng = np.random.default_rng(9)
+    L, B, H, D, S = 2, 5, 8, 128, 384
+    cache = _int4_cache(rng, L, B, H, D, S)
+    pos = torch.tensor([0, S, S - 1, 5, -1], dtype=torch.int32)
+    _, new = _new_token(rng, B, H, D)
+    want = [t.clone() for t in cache]
+    for b in (0, 2, 3):
+        for arr, val in zip(want, new):
+            arr[1, b, :, :, int(pos[b])] = val[b]
+    gpu = [t.to(dev) for t in cache]
+    TKV.kv_append_stacked(*gpu, 1, pos.to(dev),
+                          *(t[..., None].to(dev) for t in new))
+    for g, w in zip(gpu, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
@@ -540,7 +536,7 @@ def test_paged_read_self_matches_plain(dev, page, int8_qk):
     got = TPKV.int4_paged_decode_attention_stacked_self(
         q.to(dev), *gpu, 1, *args, int8_qk=int8_qk)
     bad = TPKV.int4_paged_decode_attention_stacked_self(
-        q.to(dev), *_poisoned(gpu, _pages_live(args[0], args[1], P, page)),
+        q.to(dev), *poisoned(gpu, pages_live(args[0], args[1], P, page)),
         1, *args, int8_qk=int8_qk)
     for g in (got, bad):
         np.testing.assert_allclose(f32(g), f32(want), rtol=4 * BF16_EPS,
@@ -568,7 +564,7 @@ def test_attention_ignores_poisoned_bytes(dev, row):
         cache = _int4_cache(rng, L, B, Hkv, D, S)
         lengths = torch.tensor([300, 1, 0, S - 1], dtype=torch.int32)
         table = ()
-        live = _slots_live(lengths.to(dev), S, keep=int(appends))
+        live = slots_live(lengths.to(dev), S, keep=int(appends))
     else:
         page = 16 if row == 17 else 128
         NP = -(-320 // page)
@@ -579,7 +575,7 @@ def test_attention_ignores_poisoned_bytes(dev, row):
                                   .reshape(B, NP).astype(np.int32)),)
         lengths = torch.tensor([NP * page - page // 2, 1, 0, 2 * page + 3],
                                dtype=torch.int32)
-        live = _pages_live(table[0].to(dev), lengths.to(dev), P, page,
+        live = pages_live(table[0].to(dev), lengths.to(dev), P, page,
                            keep=int(appends))
     fn = {2: TKV.int4_decode_attention_stacked, 4:
           TKV.int4_decode_attention_self_append,
@@ -589,14 +585,14 @@ def test_attention_ignores_poisoned_bytes(dev, row):
     clean = [t.clone() for t in cache]
     want = fn(q, *clean, 1, *rest)
     want = want[0] if row == 2 else want
-    bad_cache = _poisoned([t.to(dev) for t in cache], live)
+    bad_cache = poisoned([t.to(dev) for t in cache], live)
     got = fn(q.to(dev), *bad_cache, 1, *(t.to(dev) for t in rest))
     got = got[0] if row == 2 else got
     live_rows = (lengths > 0).numpy() if row in (2, 17) else slice(None)
     np.testing.assert_allclose(f32(got)[live_rows], f32(want)[live_rows],
                                rtol=4 * BF16_EPS, atol=2e-3)
     if appends:                      # the written column, as on the clean run
-        for g, c in zip(bad_cache, _poisoned([t.to(dev) for t in clean],
+        for g, c in zip(bad_cache, poisoned([t.to(dev) for t in clean],
                                              live)):
             g, c = g.cpu(), c.cpu()
             if g.dtype == torch.float32:
@@ -717,7 +713,9 @@ def test_w4a4_token_scale_in_kernel(dev, M):
     """At M <= 16 the kernel finds the per-token scale itself (absmax over
     the cluster's K slices, times the folded clip constant); beyond, the
     wrapper passes it.  Bit-equal either way, at clip 0.9, with a row of
-    zeros (scale 1) and with a caller-given token_scale."""
+    zeros (scale 1) and with a caller-given token_scale.  A NaN in one row
+    (M > 1) makes that row's output NaN, and only it, as in the plain
+    version, whether the kernel or the wrapper finds the scale."""
     rng = np.random.default_rng(90 + M)
     K, Nh = 4096, 2048
     wp = torch.from_numpy(rng.integers(0, 256, (K, Nh), dtype=np.uint8))
@@ -733,6 +731,14 @@ def test_w4a4_token_scale_in_kernel(dev, M):
                                      None if tok is None else tok.to(dev),
                                      clip_ratio=0.9)
         np.testing.assert_array_equal(f32(got), f32(want))
+    if M > 1:
+        xn[M - 1, 3000] = np.nan
+        x = torch.from_numpy(xn).to(torch.bfloat16)
+        want = f32(TMW.w4a4_matmul_paired(x, wp, s2, clip_ratio=0.9))
+        got = f32(TMW.w4a4_matmul_paired(x.to(dev), wp.to(dev), s2.to(dev),
+                                         clip_ratio=0.9))
+        assert np.isnan(want[M - 1]).all() and np.isfinite(want[:M - 1]).all()
+        np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         f32(TMW.w4a4_matmul_paired_stacked(x.to(dev), wp[None].to(dev),
                                            s2.to(dev), 0, clip_ratio=0.9)),

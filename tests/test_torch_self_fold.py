@@ -11,8 +11,11 @@ attention out within 2 bf16 roundings + 2e-3, the tolerance row 2 is held
 to in test_torch_layers.py (p rounds to bf16 against another running
 maximum: the reference tiles by `chunk` or a page group, the plain version
 takes the whole cache); a row of length 0 attends to its own token alone,
-so its output is v_self, exactly.  The port's fused function runs the
-same plain steps as the pair, so out within 1e-5 and caches bit-equal."""
+so its output is v_self, exactly.  On the CPU the port's fused function
+is defined as the same plain steps as the pair, so the last two tests only
+guard that refactor (out within 1e-5, caches bit-equal); the real check of
+the composition is test_torch_cuda.py's, which holds the fused kernels
+against the separate ones on the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -171,7 +174,9 @@ def test_paged_attention_stacked_self_matches(page, int8_qk):
 @pytest.mark.parametrize("int8_qk", [False, True])
 def test_self_append_equals_fold_then_append(int8_qk):
     """Row 4 == row 3 then row 7 on the slot cache, at a chunk's last
-    token, a chunk boundary and an empty slot."""
+    token, a chunk boundary and an empty slot.  The plain row 4 is row 3's
+    plain version then the append, so this guards only that definition;
+    test_self_append_kernel_equals_fold_then_append holds the kernels."""
     rng = np.random.default_rng(23 + int8_qk)
     L, B, Hkv, G, D, S = 2, 3, 2, 2, 64, 256
     cache = _int4_cache(rng, L, B, Hkv, D, S)
@@ -196,7 +201,8 @@ def test_self_append_equals_fold_then_append(int8_qk):
 @pytest.mark.parametrize("int8_qk", [False, True])
 def test_paged_self_append_equals_fold_then_append(int8_qk):
     """Row 19 == row 18 then row 21 on the pool, page 128, two rows
-    appending into one shared page at different lanes."""
+    appending into one shared page at different lanes.  As above, on the
+    CPU this guards only the plain definition of row 19."""
     rng = np.random.default_rng(31 + int8_qk)
     L, B, Hkv, G, D, page = 2, 3, 2, 2, 64, 128
     P = 8
