@@ -528,33 +528,58 @@ def _bf16_cache(dev, g, L, B, H, S, D):
         torch.bfloat16) for _ in range(2)]
 
 
-def check_bf16_attention(dev, g, cfg):
-    from rsq_tpu_torch.kernels import kv_cache as KV
-    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
-    L, B, S = 2, len(CONTIG_LENGTHS), 1024
-    G = Hq // Hkv
-    k, v = _bf16_cache(dev, g, L, B, Hkv, S, D)
-    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
-    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
-        torch.bfloat16)
-    got = KV.bf16_decode_attention_stacked(q, k, v, L - 1, lengths)
-    want = KV.bf16_decode_attention_plain(q, k, v, L - 1, lengths)
-    torch.cuda.synchronize()
+def _bf16_attn_err(got, want, lengths, what):
+    """out within 4 bf16 units + 2e-3 where l > 0 (bf16(p) against another
+    running maximum, one bf16 rounding of out); m and l within 1e-5 rel
+    (f32 sums in another order); a length-0 row -inf, 0 and 0/0.  Returns
+    out's max error."""
     live = lengths > 0
     err = 0.0
-    # out: bf16(p) against another running maximum, one bf16 rounding of
-    # out: 4 bf16 units + 2e-3; m and l: f32 sums in another order, 1e-5
     for i, (a, w, rtol, atol) in enumerate(zip(
             got, want, (4 * BF16_EPS, 1e-5, 1e-5), (2e-3, 0.0, 0.0))):
         a, w = a.float()[live], w.float()[live]
         e = (a - w).abs()
         if not bool((e <= rtol * w.abs() + atol).all()):
-            raise AssertionError(f"bf16 attention output {i}: max err "
+            raise AssertionError(f"bf16 attention {what} output {i}: max err "
                                  f"{float(e.max())}")
         err = max(err, float(e.max())) if i == 0 else err
     ensure(bool(torch.isnan(got[0][~live]).all())
            and bool((got[1][~live] == -math.inf).all())
-           and bool((got[2][~live] == 0).all()), "bf16 attention empty row")
+           and bool((got[2][~live] == 0).all()),
+           f"bf16 attention {what}: empty row")
+    return err
+
+
+def check_bf16_attention(dev, g, cfg):
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels.poison import poisoned, slots_live
+    Hkv, D, Hq = cfg.num_key_value_heads, cfg.head_dim_, cfg.num_attention_heads
+    L, B, S = 2, len(CONTIG_LENGTHS), 1024
+    G = Hq // Hkv
+    k, v = _bf16_cache(dev, g, L, B, Hkv, S, D)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * 2).to(
+        torch.bfloat16)
+    lengths = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    got = KV.bf16_decode_attention_stacked(q, k, v, L - 1, lengths)
+    want = KV.bf16_decode_attention_plain(q, k, v, L - 1, lengths)
+    torch.cuda.synchronize()
+    err = _bf16_attn_err(got, want, lengths, "")
+    # every cache value at or past a row's length NaN: the same bits as on
+    # the clean cache (nothing there is read)
+    live = slots_live(lengths, S).transpose(-1, -2)       # (1, B, 1, S, 1)
+    kb, vb = poisoned([k, v], live)
+    bad = KV.bf16_decode_attention_stacked(q, kb, vb, L - 1, lengths)
+    torch.cuda.synchronize()
+    for a, b in zip(got, bad):
+        ensure(torch.equal(bits(a), bits(b)),
+               "bf16 attention: poisoned cache changes the output")
+    del kb, vb
+    # every row at S - 1: each block of the cluster full
+    full = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    err = max(err, _bf16_attn_err(
+        KV.bf16_decode_attention_stacked(q, k, v, L - 1, full),
+        KV.bf16_decode_attention_plain(q, k, v, L - 1, full), full,
+        "at lengths S - 1"))
     del k, v
     kb, vb = _bf16_cache(dev, g, TIMING_LAYERS, B, Hkv, S, D)
     pos = torch.arange(S, device=dev)
@@ -580,8 +605,11 @@ def check_bf16_attention(dev, g, cfg):
             "library": "scaled_dot_product_attention (GQA, length mask)",
             "unit": "one decode layer, B=8, S=1024, lengths "
                     + ",".join(map(str, CONTIG_LENGTHS)),
+            "cluster": KV.bf16_attention_cluster(S),
             "check": "out within 4*2^-8 rel + 2e-3 where l > 0, m and l "
-                     "within 1e-5 rel; length-0 row -inf, 0, 0/0"}
+                     "within 1e-5 rel; length-0 row -inf, 0, 0/0; also at "
+                     "lengths all S - 1; bit-equal on a cache poisoned at "
+                     "and past each length"}
 
 
 def check_bf16_append(dev, g, cfg):
@@ -619,10 +647,16 @@ def check_bf16_append(dev, g, cfg):
             "check": "whole caches bit-equal to the plain version"}
 
 
+# M of the dense bf16 checks: decode (batch 8), the engine's prefill
+# buckets and the per-layer prefill (8 prompts of 512)
+W16_MS = (8, 128, 512, 1024, 4096)
+
+
 def check_w16(dev, g, cfg):
-    """The unfused Llama-3-8B products at decode (M=8) and at the largest
-    prefill bucket (M=1024).  The top-level times are one decode layer's
-    seven products: q, k, v, o, up, gate, down."""
+    """The unfused Llama-3-8B products at decode (M=8) and at prefill (M =
+    128, 512, 1024 -- the engine's buckets -- and 4096, the per-layer
+    prefill), each beside torch.matmul.  The top-level times are one
+    decode layer's seven products: q, k, v, o, up, gate, down."""
     from rsq_tpu_torch.kernels import matmul_w4 as MW
     d, f = cfg.hidden_size, cfg.intermediate_size
     shapes = {"q|o": (d, cfg.q_dim, 2), "k|v": (d, cfg.kv_dim, 2),
@@ -632,12 +666,16 @@ def check_w16(dev, g, cfg):
         copies = max(2, -(-128 * 2**20 // (K * N * 2)))   # > the L2 per loop
         w = torch.randn((copies, K, N), generator=g, device=dev).to(
             torch.bfloat16) * (1.0 / math.sqrt(K))
-        for M in (8, 1024):
+        for M in W16_MS:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             got = MW.w16_matmul_stacked(x, w, 1)
             want = MW.w16_matmul_stacked_plain(x, w, 1, torch.bfloat16)
             torch.cuda.synchronize()
             err = max(err, matmul_err(got, want, f"w16 {name} M={M}"))
+            again = MW.w16_matmul_stacked(x, w, 1)
+            ensure(torch.equal(bits(got), bits(again)),
+                   f"w16 {name} M={M}: two calls differ")
+            del got, want, again
             t = timings(
                 rotating(lambda j: MW.w16_matmul_stacked(x, w, j), copies),
                 rotating(lambda j: MW.w16_matmul_stacked_plain(
@@ -647,7 +685,9 @@ def check_w16(dev, g, cfg):
                              2.0 * M * K * N, "bf16")
             cases.append({"proj": name, "M": M, "K": K, "N": N,
                           "per_layer": uses, **t, "bound_ms": b,
-                          "bound_by": by})
+                          "bound_by": by,
+                          "vs_library": t["device_ms"] / t["library_ms"]})
+            del x
         del w
     dec = [c for c in cases if c["M"] == 8]
     total = {k: sum(c[k] * c["per_layer"] for c in dec)
@@ -661,7 +701,8 @@ def check_w16(dev, g, cfg):
             else "operations",
             "library": "torch.matmul(x, w_all[i])",
             "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
-            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in "
+                     + ", ".join(map(str, W16_MS)) + "; two calls bit-equal",
             "cases": cases}
 
 

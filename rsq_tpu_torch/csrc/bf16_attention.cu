@@ -13,17 +13,37 @@
 //     gives m = -inf, l = 0 and out = 0/0, as the reference does; the caller
 //     (merge_self_attention) masks it.
 //   Bound on this card: the cache bytes of the cached tokens (2*D bytes for
-//     k and for v per token and kv head) -- 8.4 MB per Llama-3-8B layer at
-//     B=8, fill 512.
-//   Design: one block of 128 threads per (b, kv head) walks the row's tokens
-//     in 64-token tiles, staged in shared memory with 16-byte coalesced
-//     loads (tokens past the length are not read and stage as zeros).  The
-//     K tile's rows are padded to 65 words, so the score loop (neighbouring
-//     threads on neighbouring tokens) reads distinct banks; each warp then
-//     owns query rows for the tile's max and sums (shuffles); thread d
-//     accumulates output dimension d.  The reference's padding of G to 8
-//     rows is a TPU layout artifact and is not copied.  No tensor cores and
-//     no split over tiles yet: B*Hkv blocks.
+//     k and for v per token and kv head) -- 16.8 MB per Llama-3-8B layer at
+//     B=8 and 4,096 cached tokens, 0.005 ms at 3.35 TB/s.
+//   Design:
+//   - Each (b, kv head) row is split over the sequence by a thread-block
+//     cluster of CL <= 8 blocks (the wrapper sizes CL from S, the longest a
+//     row can be, at 4 tiles a block: the lengths live on the card; 4 at
+//     S = 1024, where 8 blocks of 68 KB a row take more than one wave).
+//     Block r of the cluster takes 64-token tiles [r*T/CL, (r+1)*T/CL) of
+//     the row's T tiles, so a short row leaves some blocks empty.
+//   - The tiles are double-buffered in shared memory with cp.async
+//     (smem_ring.cuh): 16-byte copies of whole rows, tokens at or past the
+//     length (and d past D) zero-filled and never read from the cache.
+//     Rows are 256 bytes with their 16-byte chunks XOR-swizzled by the
+//     token's low 3 bits, so ldmatrix's 8 row reads hit distinct banks.
+//   - Each of the 4 warps owns 16 tokens of every tile and keeps its own
+//     online-softmax state, so the tile loop has no block-wide reductions.
+//     Scores on mma.sync.m16n8k16 (bf16 in, f32 sums): the warp's 16
+//     tokens are the m side (K rows by ldmatrix), the G <= 8 query rows the
+//     n side (bf16(q*sm_scale) held in registers, rows past G zero).  Each
+//     thread then holds 2 tokens x 2 rows; the row max and sum take three
+//     shuffles.  P.V on the same mma with d as the m side: V^T is the A
+//     operand (16 d by ldmatrix.trans from the token-major tile) and
+//     bf16(p) the B operand, turned from (token, row pairs) into (row,
+//     token pairs) by one movmatrix.trans per 8 tokens.  A warp whose 16
+//     tokens all lie at or past the length skips the tile, so a state is
+//     either empty (m = -inf, l = 0) or has a live token.
+//   - The states merge in a fixed order, so runs repeat bit for bit: the
+//     4 warps' in the block, then the CL blocks' in rank order through
+//     distributed shared memory.  An empty state weighs 0 (exp(-inf -
+//     -inf) would be NaN); a row whose states are all empty keeps m = -inf,
+//     l = 0 and out = 0/0.  One launch, no workspace.
 //
 // 2. kv_append_bf16
 //   Replaces: rsq_tpu/kernels/kv_cache.py kv_append_stacked_bf16 (:937),
@@ -36,21 +56,78 @@
 //     latency dominates.
 //   Design: one block per batch row copies its H*D values of k and of v.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
 
+#include "smem_ring.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+using namespace smem_ring;
 
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
-constexpr int TT = 64;          // tokens per tile
+constexpr int TT = 16 * NW;         // tokens per tile, 16 per warp
 constexpr int MAXD = 128;
 constexpr int MAXG = 8;
-constexpr int KROW = MAXD / 2 + 1;   // words per staged K row (65: bank t + d/2)
+constexpr int ROWB = MAXD * 2;      // bytes per staged token row
+constexpr int TILE = TT * ROWB;     // bytes per staged K (or V) tile
+constexpr int STAGES = 2;
+constexpr int SMEM = STAGES * 2 * TILE;
+constexpr int MAXCL = 8;            // a portable cluster
 constexpr float MASK_VALUE = -1e30f;
 
+// Byte offset of 16-byte chunk c of token row t in a staged tile
+__device__ __forceinline__ int tswz(int t, int c) {
+  return t * ROWB + ((c ^ (t & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const uint8_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s) : "memory");
+}
+
+// The 8x8 bf16 matrix whose row lane/4 holds this thread's pair at columns
+// 2*(lane%4), +1, transposed across the warp.
+__device__ __forceinline__ uint32_t transpose8(uint32_t v) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(r) : "r"(v));
+  return r;
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16(lo), bf16(hi) as one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid (CL, B*Hkv) in clusters of (CL, 1, 1); dynamic shared memory SMEM
 __global__ void __launch_bounds__(THREADS)
 bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k_all,
@@ -59,106 +136,200 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
                  float* __restrict__ l_out, int B, int layer, int Hkv, int G,
                  int D, int S, float sm_scale) {
-  __shared__ float qd[MAXG][MAXD];                    // bf16(q * sm_scale)
-  __shared__ uint32_t kt[TT * KROW];                  // bf16 pairs, padded rows
-  __shared__ __align__(16) __nv_bfloat16 vt[TT][MAXD];
-  __shared__ float sc[MAXG][TT];                      // scores, then bf16(p)
-  __shared__ float ms[MAXG], ls[MAXG], al[MAXG];
+  extern __shared__ __align__(16) uint8_t ring[];     // STAGES x (K, V) tiles
+  __shared__ float wm[NW][MAXG], wl[NW][MAXG];        // the warps' states
+  __shared__ float bm[MAXG], bl[MAXG];                // the block's state
+  __shared__ __align__(16) float bacc[MAXG][MAXD];
 
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = gridDim.x, rank = (int)cluster.block_rank();
+  const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int Hq = Hkv * G;
-  const int len = min(lengths[b], S);
-  const int D2 = D / 2, C = D / 8;                    // 16-byte chunks per token
+  const int len = max(0, min(lengths[b], S));
+  const int ntiles = (len + TT - 1) / TT;
+  const int j0 = rank * ntiles / CL, j1 = (rank + 1) * ntiles / CL;
+  const int C = ((D + 15) & ~15) / 8;                 // staged chunks a row
   const size_t head = (((size_t)layer * B + b) * Hkv + h) * (size_t)S * D;
 
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D, d = i % D;
-    const float x = __fmul_rn(
-        __bfloat162float(q[((size_t)b * Hq + h * G + g) * D + d]), sm_scale);
-    qd[g][d] = __bfloat162float(__float2bfloat16_rn(x));
-  }
-  if (tid < G) { ms[tid] = -INFINITY; ls[tid] = 0.0f; }
-  float acc[MAXG];
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.0f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TT) {
-    const int nt = min(TT, len - t0);
+  // tile j into ring slot `slot`; chunks at or past the length or D are
+  // zero-filled without reading the cache
+  auto load = [&](int j, int slot) {
+    uint8_t* kd = ring + slot * 2 * TILE;
+    uint8_t* vd = kd + TILE;
     for (int i = tid; i < TT * C; i += THREADS) {
-      const int t = i / C, c = i % C;
-      uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
-      if (t < nt) {
-        const size_t off = head + (size_t)(t0 + t) * D + 8 * c;
-        kw = __ldg(reinterpret_cast<const uint4*>(k_all + off));
-        vw = __ldg(reinterpret_cast<const uint4*>(v_all + off));
-      }
-      uint32_t* kr = kt + t * KROW + 4 * c;
-      kr[0] = kw.x; kr[1] = kw.y; kr[2] = kw.z; kr[3] = kw.w;
-      *reinterpret_cast<uint4*>(&vt[t][8 * c]) = vw;
+      const int tk = i / C, c = i % C, pos = j * TT + tk;
+      const bool ok = pos < len && 8 * c < D;
+      const size_t off = head + (ok ? (size_t)pos * D + 8 * c : 0);
+      cp_async(kd + tswz(tk, c), k_all + off, ok ? 16 : 0, 16);
+      cp_async(vd + tswz(tk, c), v_all + off, ok ? 16 : 0, 16);
     }
-    __syncthreads();
+  };
 
-    // scores: (token, row) pairs, neighbouring threads on neighbouring tokens
-    for (int i = tid; i < TT * G; i += THREADS) {
-      const int t = i % TT, g = i / TT;
-      float s = 0.0f;
-      const uint32_t* kr = kt + t * KROW;
-      for (int d2 = 0; d2 < D2; ++d2) {
-        const uint32_t w = kr[d2];
-        // bf16 x bf16 is exact in f32, so fmaf == mul + add
-        s = fmaf(qd[g][2 * d2], __uint_as_float(w << 16), s);
-        s = fmaf(qd[g][2 * d2 + 1], __uint_as_float(w & 0xffff0000u), s);
-      }
-      sc[g][t] = t < nt ? s : MASK_VALUE;
-    }
-    __syncthreads();
-
-    // online softmax: warp w owns rows w, w + NW, ...
-    for (int g = warp; g < G; g += NW) {
-      const float s0 = sc[g][lane], s1 = sc[g][lane + 32];
-      float mx = fmaxf(s0, s1);
+  // B fragments of bf16(q * sm_scale): row g, d = 16ks + 2t (+8), +1
+  uint32_t qf[MAXD / 16][2];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = ms[g];
-      const float mn = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - mn), p1 = expf(s1 - mn);
-      float ps = __fadd_rn(p0, p1);
+  for (int ks = 0; ks < MAXD / 16; ++ks)
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, o));
-      sc[g][lane] = __bfloat162float(__float2bfloat16_rn(p0));
-      sc[g][lane + 32] = __bfloat162float(__float2bfloat16_rn(p1));
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - mn);
-        al[g] = alpha;
-        ms[g] = mn;
-        ls[g] = __fadd_rn(__fmul_rn(alpha, ls[g]), ps);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int d = 16 * ks + 8 * hh + 2 * t;
+      float x0 = 0.0f, x1 = 0.0f;
+      if (g < G && d < D) {                           // D % 8 == 0
+        const __nv_bfloat16* qr = q + ((size_t)b * Hq + h * G + g) * D + d;
+        x0 = __fmul_rn(__bfloat162float(qr[0]), sm_scale);
+        x1 = __fmul_rn(__bfloat162float(qr[1]), sm_scale);
       }
+      qf[ks][hh] = pack_bf16(x0, x1);
     }
-    __syncthreads();
 
-    if (tid < D) {
-      const int d = tid;
-      for (int g = 0; g < G; ++g) {
-        float tv = 0.0f;
-        for (int j = 0; j < TT; ++j)
-          tv = fmaf(sc[g][j], __bfloat162float(vt[j][d]), tv);
-        acc[g] = __fadd_rn(__fmul_rn(acc[g], al[g]), tv);
+  // this warp's state: rows 2t, 2t+1; acc[i]: d = 16i + g (+8) by row
+  float m_[2] = {-INFINITY, -INFINITY}, l_[2] = {0.0f, 0.0f};
+  float acc[MAXD / 16][4];
+#pragma unroll
+  for (int i = 0; i < MAXD / 16; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  // ldmatrix rows of this lane: K (m = token) and V^T (k = token) tiles
+  const int krow = 16 * w + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int kch = lane >> 4;
+  const int vrow = 16 * w + (lane & 7) + (lane >> 4) * 8;
+  const int vch = (lane >> 3) & 1;
+
+  if (j0 < j1) load(j0, 0);
+  cp_commit();
+  if (j0 + 1 < j1) load(j0 + 1, 1);
+  cp_commit();
+  for (int j = j0; j < j1; ++j) {
+    const int slot = (j - j0) & 1;
+    cp_wait<1>();
+    __syncthreads();
+    const int tok0 = j * TT + 16 * w;                 // the warp's tokens
+    if (tok0 < len) {
+      const uint8_t* kt = ring + slot * 2 * TILE;
+      const uint8_t* vt = kt + TILE;
+      // s: (token g, rows 2t, 2t+1), then (token g + 8, the same rows)
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int ks = 0; ks < MAXD / 16; ++ks)
+        if (16 * ks < D) {
+          uint32_t a[4];
+          ldsm_x4(a, kt + tswz(krow, 2 * ks + kch));
+          mma(s, a, qf[ks][0], qf[ks][1]);
+        }
+      if (tok0 + g >= len) s[0] = s[1] = MASK_VALUE;
+      if (tok0 + g + 8 >= len) s[2] = s[3] = MASK_VALUE;
+      float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
       }
+      const float mn0 = fmaxf(m_[0], mx0), mn1 = fmaxf(m_[1], mx1);
+      const float al0 = expf(m_[0] - mn0), al1 = expf(m_[1] - mn1);
+      const float p0 = expf(s[0] - mn0), p1 = expf(s[1] - mn1);
+      const float p2 = expf(s[2] - mn0), p3 = expf(s[3] - mn1);
+      float ps0 = __fadd_rn(p0, p2), ps1 = __fadd_rn(p1, p3);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        ps0 = __fadd_rn(ps0, __shfl_xor_sync(0xffffffffu, ps0, o));
+        ps1 = __fadd_rn(ps1, __shfl_xor_sync(0xffffffffu, ps1, o));
+      }
+      l_[0] = __fadd_rn(__fmul_rn(al0, l_[0]), ps0);
+      l_[1] = __fadd_rn(__fmul_rn(al1, l_[1]), ps1);
+      m_[0] = mn0;
+      m_[1] = mn1;
+      // bf16(p) as (tokens 2t, 2t+1; row g), then tokens + 8
+      const uint32_t b0 = transpose8(pack_bf16(p0, p1));
+      const uint32_t b1 = transpose8(pack_bf16(p2, p3));
+#pragma unroll
+      for (int i = 0; i < MAXD / 16; ++i)
+        if (16 * i < D) {
+          acc[i][0] = __fmul_rn(acc[i][0], al0);
+          acc[i][1] = __fmul_rn(acc[i][1], al1);
+          acc[i][2] = __fmul_rn(acc[i][2], al0);
+          acc[i][3] = __fmul_rn(acc[i][3], al1);
+          uint32_t a[4];
+          ldsm_x4_trans(a, vt + tswz(vrow, 2 * i + vch));
+          mma(acc[i], a, b0, b1);
+        }
     }
-    __syncthreads();   // tiles and sc are overwritten by the next iteration
+    __syncthreads();                                  // slot read by all
+    if (j + 2 < j1) load(j + 2, slot);
+    cp_commit();
   }
+  cp_wait<0>();
 
-  if (tid < D) {
-    for (int g = 0; g < G; ++g)
-      out[((size_t)b * Hq + h * G + g) * D + tid] =
-          __float2bfloat16_rn(__fdiv_rn(acc[g], ls[g]));
+  // the warps' states into shared memory (acc in the idle ring), then the
+  // block's: the warps merged in order, an empty one weighing 0
+  float* wacc = reinterpret_cast<float*>(ring);       // NW x MAXG x MAXD
+  if (g == 0) {
+    wm[w][2 * t] = m_[0]; wm[w][2 * t + 1] = m_[1];
+    wl[w][2 * t] = l_[0]; wl[w][2 * t + 1] = l_[1];
+  }
+#pragma unroll
+  for (int i = 0; i < MAXD / 16; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d = 16 * i + g + (c >> 1) * 8, row = 2 * t + (c & 1);
+      if (d < D) wacc[(w * MAXG + row) * MAXD + d] = acc[i][c];
+    }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += THREADS) {
+    const int row = e / D, d = e % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+      if (wl[v][row] > 0.0f) mx = fmaxf(mx, wm[v][row]);
+    float a = 0.0f;
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+      if (wl[v][row] > 0.0f)
+        a = __fadd_rn(a, __fmul_rn(expf(wm[v][row] - mx),
+                                   wacc[(v * MAXG + row) * MAXD + d]));
+    bacc[row][d] = a;
   }
   if (tid < G) {
-    m_out[((size_t)b * Hkv + h) * G + tid] = ms[tid];
-    l_out[((size_t)b * Hkv + h) * G + tid] = ls[tid];
+    float mx = -INFINITY, l = 0.0f;
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+      if (wl[v][tid] > 0.0f) mx = fmaxf(mx, wm[v][tid]);
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+      if (wl[v][tid] > 0.0f)
+        l = __fadd_rn(l, __fmul_rn(expf(wm[v][tid] - mx), wl[v][tid]));
+    bm[tid] = mx;
+    bl[tid] = l;
   }
+
+  // the row's state: the blocks merged in rank order; block r finishes
+  // elements r*THREADS + tid, + CL*THREADS, ...
+  cluster.sync();
+  for (int e = rank * THREADS + tid; e < G * D; e += CL * THREADS) {
+    const int row = e / D, d = e % D;
+    float mx = -INFINITY;
+    for (int r = 0; r < CL; ++r)
+      if (*cluster.map_shared_rank(&bl[row], r) > 0.0f)
+        mx = fmaxf(mx, *cluster.map_shared_rank(&bm[row], r));
+    float a = 0.0f, l = 0.0f;
+    for (int r = 0; r < CL; ++r) {
+      const float lr = *cluster.map_shared_rank(&bl[row], r);
+      if (lr > 0.0f) {
+        const float wt = expf(*cluster.map_shared_rank(&bm[row], r) - mx);
+        const float ar = *cluster.map_shared_rank(&bacc[row][d], r);
+        a = __fadd_rn(a, __fmul_rn(wt, ar));
+        l = __fadd_rn(l, __fmul_rn(wt, lr));
+      }
+    }
+    out[((size_t)b * Hq + h * G + row) * D + d] =
+        __float2bfloat16_rn(__fdiv_rn(a, l));
+    if (d == 0) {
+      m_out[((size_t)b * Hkv + h) * G + row] = mx;
+      l_out[((size_t)b * Hkv + h) * G + row] = l;
+    }
+  }
+  cluster.sync();                    // no block leaves while read from
 }
 
 __global__ void kv_append_bf16(__nv_bfloat16* __restrict__ k_all,
@@ -180,17 +351,37 @@ __global__ void kv_append_bf16(__nv_bfloat16* __restrict__ k_all,
 
 }  // namespace
 
+// cl: blocks per (b, kv head) row, 1..8, one cluster.  Needs D <= 128 and
+// D % 8 == 0, G <= 8, contiguous caches (the wrapper checks).
 extern "C" int bf16_decode_attention_launch(
     const void* q, const void* k_all, const void* v_all, const void* lengths,
     void* out, void* m, void* l, int B, int layer, int Hkv, int G, int D,
-    int S, float sm_scale, void* stream) {
-  bf16_decode_attn<<<B * Hkv, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
+    int S, float sm_scale, int cl, void* stream) {
+  if (cl < 1 || cl > MAXCL || D > MAXD || D % 8 != 0 || G > MAXG)
+    return (int)cudaErrorInvalidValue;
+  static bool ready = false;
+  cudaError_t e = allow_smem(bf16_decode_attn, SMEM, ready);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, B * Hkv, 1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, bf16_decode_attn, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_all),
       static_cast<const __nv_bfloat16*>(v_all),
       static_cast<const int32_t*>(lengths), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(m), static_cast<float*>(l), B, layer, Hkv, G, D, S,
       sm_scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

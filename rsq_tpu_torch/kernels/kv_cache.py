@@ -506,6 +506,34 @@ def bf16_decode_attention_plain(q, k_all, v_all, layer, lengths,
     return out, m[..., 0], l[..., 0]
 
 
+# the CUDA kernel's sequence split: 64-token tiles, at most 8 blocks (one
+# cluster) per (b, kv head) row, sized so that the longest row a cache of
+# S tokens can hold gives each block at most 4 tiles.  On the H100 at
+# B=8, Hkv=8, S=1024, 4 tiles a block (4 blocks a row) beat 2 (8 blocks,
+# more than one wave of 68 KB blocks) and 8 (2 blocks): PERF.md §6.
+BF16_TILE = 64
+BF16_TILES_PER_BLOCK = 4
+BF16_MAX_CLUSTER = 8
+
+
+def bf16_attention_cluster(S: int) -> int:
+    """Blocks per (b, kv head) row of the bf16 decode attention kernel for
+    a cache of S tokens.  Sized from S, not from the lengths: they live on
+    the card, and reading them would cost the step a sync."""
+    tiles = -(-S // BF16_TILE)
+    return max(1, min(BF16_MAX_CLUSTER, -(-tiles // BF16_TILES_PER_BLOCK)))
+
+
+def bf16_attention_chunks(length: int, S: int, cl: int):
+    """The token ranges [start, end) the cl blocks of one row read, in rank
+    order, as the kernel splits them: block r takes 64-token tiles
+    [r*T//cl, (r+1)*T//cl) of the row's T tiles, cut at the length."""
+    n = max(0, min(length, S))
+    T = -(-n // BF16_TILE)
+    return [(min(n, r * T // cl * BF16_TILE),
+             min(n, (r + 1) * T // cl * BF16_TILE)) for r in range(cl)]
+
+
 def bf16_decode_attention_stacked(q, k_all, v_all, layer: int, lengths,
                                   sm_scale=None):
     """Decode attention against layer `layer` of the stacked bf16 cache
@@ -540,9 +568,10 @@ def bf16_decode_attention_stacked(q, k_all, v_all, layer: int, lengths,
     fn = cuda_build.function(
         "bf16_attention", "bf16_decode_attention_launch",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     rc = fn(ptr(q), ptr(k_all), ptr(v_all), ptr(lens), ptr(out), ptr(m),
-            ptr(l), B, layer, Hkv, G, D, S, sm_scale, stream(q))
+            ptr(l), B, layer, Hkv, G, D, S, sm_scale,
+            bf16_attention_cluster(S), stream(q))
     cuda_build.check(rc, "bf16_decode_attention_stacked")
     LAUNCHES["bf16_decode_attention_stacked"] += 1
     return out, m, l

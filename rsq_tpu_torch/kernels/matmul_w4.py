@@ -427,11 +427,34 @@ def w16_matmul_stacked_plain(x, w_all, layer, out_dtype):
     return (x.float() @ w_all[layer].float()).to(out_dtype)
 
 
+# tensor maps of stacked weights for the M > 16 kernel, one per (address,
+# shape): the map holds only those, so a reused address stays valid
+_W16_MAPS: dict[tuple[int, int, int, int], ctypes.Array] = {}
+_W16_MAPS_MAX = 256
+
+
+def _w16_weight_map(w_all):
+    L, K, N = w_all.shape
+    key = (w_all.data_ptr(), L, K, N)
+    m = _W16_MAPS.get(key)
+    if m is None:
+        if len(_W16_MAPS) >= _W16_MAPS_MAX:
+            _W16_MAPS.clear()
+        m = ctypes.create_string_buffer(128)      # sizeof(CUtensorMap)
+        fn = cuda_build.function("w16_matmul", "w16_weight_map",
+                                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
+        cuda_build.check(fn(m, ptr(w_all), L, K, N), "w16 weight tensor map")
+        _W16_MAPS[key] = m
+    return m
+
+
 def w16_matmul_stacked(x, w_all, layer: int, out_dtype=None):
     """y = x @ w_all[layer] for stacked dense (L, K, N) weights, the layer
     read in place (no copy), f32 accumulation.  x: (M, K), cast to the
     weights' dtype first when they differ (as the reference does); output
-    in out_dtype or x's dtype."""
+    in out_dtype or x's dtype.  On the card: M <= 16 streams the weights,
+    M > 16 runs TMA and wgmma, each with K split over a cluster where the
+    output tiles cannot fill the card; one launch either way."""
     require(x.dim() == 2 and w_all.dim() == 3, "x (M, K), w_all (L, K, N)")
     M, K = x.shape
     L, Kw, N = w_all.shape
@@ -448,16 +471,26 @@ def w16_matmul_stacked(x, w_all, layer: int, out_dtype=None):
     require(K % 8 == 0 and N % 8 == 0, "kernel needs K % 8 == 0, N % 8 == 0")
     require(w_all.is_contiguous(), "w_all must be contiguous")
     x = x.contiguous()
+    require(x.data_ptr() % 16 == 0 and w_all.data_ptr() % 16 == 0,
+            "kernel needs 16-byte aligned x and w_all")
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    # the slices of a K split are summed in order by a second pass
-    nsplit, kchunk = _split_k(-(-N // 128) * (1 if M <= 16 else -(-M // 64)), K)
-    part = (torch.empty((nsplit, M, N), dtype=torch.float32, device=x.device)
-            if nsplit > 1 else y)
+    if M <= 16:
+        wmap = None
+        # about one block an SM: on the H100 a decode layer took 0.187 ms
+        # so against 0.190-0.205 at 2-4 blocks an SM (PERF.md §6)
+        nsplit, kchunk = _split_k(-(-N // 128), K, per_sm=1, most=8)
+    else:
+        wmap = _w16_weight_map(w_all)
+        # 128 x 128 tiles, one block an SM: K is split only where the tiles
+        # leave SMs idle, and never past one wave
+        tiles = -(-M // 128) * -(-N // 128)
+        nsplit, kchunk = _split_k(tiles, K, per_sm=1,
+                                  most=max(1, min(8, 132 // tiles)))
     fn = cuda_build.function(
         "w16_matmul", "w16_matmul_stacked_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    rc = fn(ptr(x), ptr(w_all[layer]), ptr(y), ptr(part), M, K, N, kchunk,
-            int(out_dtype == torch.float32), stream(x))
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    rc = fn(ptr(x), ptr(w_all[layer]), wmap, ptr(y), M, K, N, layer, kchunk,
+            nsplit, int(out_dtype == torch.float32), stream(x))
     cuda_build.check(rc, "w16_matmul_stacked")
     LAUNCHES["w16_matmul_stacked"] += 1
     return y

@@ -136,15 +136,26 @@ def test_self_append_plain_matches(chunk, int8_qk):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-def test_bf16_decode_attention_plain_matches():
+# (G, D, S, lengths): the first case, then the CUDA tests' edges
+# (tests/test_torch_cuda.py::test_bf16_attention_edges): every length a
+# 64-token tile or a cluster block can end on, S a multiple of 16 but not
+# of the tile, G padded to the mma's 8 rows or not
+BF16_ATTN_CASES = [(4, 64, 512, [200, 384, 0])] + [
+    (G, D, 528, [0, 1, 63, 64, 65, 500, 527, 528])
+    for G, D in ((1, 64), (4, 128), (8, 128), (8, 64))]
+
+
+@pytest.mark.parametrize("G,D,S,lengths", BF16_ATTN_CASES)
+def test_bf16_decode_attention_plain_matches(G, D, S, lengths):
     """m and l: the same maximum and f32 sums taken over other tiles, so
     within 1e-5 relative.  out where l > 0: p is rounded to bf16 against
     another running maximum, then one bf16 rounding of out; within 2 bf16
     roundings (as the INT4 kernels).  The empty row gives m = -inf, l = 0
     and out = 0/0 in both."""
     rng = np.random.default_rng(5)
-    L, B, Hkv, G, D, S = 2, 3, 2, 4, 64, 512
-    lengths = np.array([200, 384, 0], np.int32)
+    L, Hkv = 2, 2
+    lengths = np.array(lengths, np.int32)
+    B = len(lengths)
     q = (rng.standard_normal((B, Hkv * G, D)) * 2).astype(np.float32)
     k = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
     v = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
@@ -163,6 +174,28 @@ def test_bf16_decode_attention_plain_matches():
     assert np.all(f32(tm)[~live] == -np.inf) and np.all(f32(jm)[~live] == -np.inf)
     assert np.all(f32(tl)[~live] == 0) and np.all(f32(jl)[~live] == 0)
     assert np.isnan(f32(to)[~live]).all() and np.isnan(f32(jo)[~live]).all()
+
+
+@pytest.mark.parametrize("S", [16, 64, 128, 528, 1024, 4096])
+def test_bf16_attention_split_covers_each_row(S):
+    """The CUDA kernel's sequence split (mirrored by bf16_attention_chunks):
+    for every length 0..S (and one past S, clamped), the cluster's blocks
+    read disjoint token ranges, in rank order, that cover [0, length)
+    exactly and never reach S; at most 8 blocks, each with at most 4
+    64-token tiles of the longest row."""
+    cl = TKV.bf16_attention_cluster(S)
+    assert 1 <= cl <= 8
+    assert -(-S // 64) <= 4 * cl or cl == 8
+    for n in range(S + 2):
+        chunks = TKV.bf16_attention_chunks(n, S, cl)
+        assert len(chunks) == cl
+        pos = 0
+        for a, b in chunks:
+            assert a == pos and a <= b <= min(n, S)
+            if S <= 2048:
+                assert b - a <= 4 * 64
+            pos = b
+        assert pos == min(n, S)
 
 
 def test_bf16_append_plain_bit_equal():
@@ -192,7 +225,8 @@ def test_bf16_append_refuses_unaligned_cache():
                                    torch.zeros((2, 2, 1, 16)))
 
 
-@pytest.mark.parametrize("M", [3, 8, 130])
+# M: the decode stream (1, 8, 16), one past it (17) and the wgmma tiles
+@pytest.mark.parametrize("M", [3, 8, 130, 1, 16, 17, 64])
 def test_w16_plain_matches(M):
     """f32 sums in another order, then one bf16 rounding: within one bf16
     rounding (f32 output: within 1e-5 relative)."""

@@ -30,6 +30,24 @@ def f32(t):
     return t.float().cpu().numpy()
 
 
+def _bits(t):
+    """t's bits as integers, so NaNs compare equal to themselves."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _launches(fn):
+    """Kernel launches the host makes in fn(), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [3, 8, 130])
 @pytest.mark.parametrize("K,Nh", [(256, 160), (112, 32)])
@@ -160,20 +178,20 @@ def test_contiguous_attention_matches_plain(dev, int8_qk, S):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
-@pytest.mark.cuda
-def test_bf16_attention_matches_plain(dev):
-    """m and l within 1e-5 relative (f32 sums in another order); out within
-    2 bf16 roundings where l > 0; the empty row gives -inf, 0 and 0/0."""
-    rng = np.random.default_rng(4)
-    L, B, Hkv, G, D, S = 2, 4, 8, 4, 128, 512
-    lengths = torch.tensor([200, 64, 0, 511], dtype=torch.int32)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
-                                ).to(torch.bfloat16)
-               for s in ((B, Hkv * G, D), (L, B, Hkv, S, D), (L, B, Hkv, S, D)))
-    want = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
-    got = TKV.bf16_decode_attention_stacked(q.to(dev), k.to(dev), v.to(dev), 1,
-                                            lengths.to(dev))
-    live = (lengths > 0).numpy()
+def _bf16_case(rng, B, Hkv, G, D, S, L=2):
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((L, B, Hkv, S, D))
+                             .astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v
+
+
+def _bf16_attn_close(got, want, lengths):
+    """out within 2 bf16 roundings where l > 0 (bf16(p) against another
+    running maximum, one rounding of out); m, l within 1e-5 relative (f32
+    sums in another order); a row of length 0: out 0/0, m -inf, l 0."""
+    live = (lengths > 0).cpu().numpy()
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = f32(g), f32(w)
         if i == 0:
@@ -183,6 +201,70 @@ def test_bf16_attention_matches_plain(dev):
         else:
             np.testing.assert_allclose(g[live], w[live], rtol=1e-5)
             np.testing.assert_array_equal(g[~live], w[~live])
+
+
+# every length a tile and a cluster block can end on, in one batch, on a
+# cache whose S (528) is a multiple of 16 but not of the 64-token tile
+BF16_EDGE_S = 528
+BF16_EDGE_LENGTHS = [0, 1, 63, 64, 65, 500, BF16_EDGE_S - 1, BF16_EDGE_S]
+# (Hkv, G, D, S, lengths): the first case, then the edges with G in 1, 4,
+# 8 (rows past G padded in the mma's n side) and D in 64, 128 and 72 (a
+# half k16 step)
+BF16_ATTN_CASES = [(8, 4, 128, 512, [200, 64, 0, 511])] + [
+    (2, G, D, BF16_EDGE_S, BF16_EDGE_LENGTHS)
+    for G in (1, 4, 8) for D in (64, 128, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv,G,D,S,lengths", BF16_ATTN_CASES)
+def test_bf16_attention_matches_plain(dev, Hkv, G, D, S, lengths):
+    """m and l within 1e-5 relative (f32 sums in another order); out within
+    2 bf16 roundings where l > 0; the empty row gives -inf, 0 and 0/0."""
+    rng = np.random.default_rng(4)
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    q, k, v = _bf16_case(rng, len(lengths), Hkv, G, D, S)
+    want = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
+    got = TKV.bf16_decode_attention_stacked(q.to(dev), k.to(dev), v.to(dev),
+                                            1, lengths.to(dev))
+    _bf16_attn_close(got, want, lengths)
+
+
+@pytest.mark.cuda
+def test_bf16_attention_ignores_poisoned_bytes(dev):
+    """Every cache value at or past a row's length NaN: out, m and l equal
+    the kernel's on the clean cache, bit for bit (nothing there is read),
+    and the plain version on the clean cache within its tolerances."""
+    rng = np.random.default_rng(41)
+    S = BF16_EDGE_S
+    lengths = torch.tensor(BF16_EDGE_LENGTHS, dtype=torch.int32).to(dev)
+    q, k, v = (t.to(dev) for t in _bf16_case(rng, len(BF16_EDGE_LENGTHS), 8,
+                                             4, 128, S))
+    clean = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
+    live = slots_live(lengths, S).transpose(-1, -2)        # (1, B, 1, S, 1)
+    kb, vb = poisoned([k, v], live)
+    assert torch.isnan(kb.float()).any()
+    bad = TKV.bf16_decode_attention_stacked(q, kb, vb, 1, lengths)
+    for c, b in zip(clean, bad):
+        assert torch.equal(_bits(c), _bits(b))
+    want = TKV.bf16_decode_attention_stacked(q.cpu(), k.cpu(), v.cpu(), 1,
+                                             lengths.cpu())
+    _bf16_attn_close(bad, want, lengths)
+
+
+@pytest.mark.cuda
+def test_bf16_attention_one_launch_same_bits(dev):
+    """One launch a call (the cluster merges its blocks' states itself) and
+    the same bits run to run (the merge order is fixed)."""
+    rng = np.random.default_rng(42)
+    lengths = torch.tensor([300, 450, 600, 700, 0, 511, 512, 1023],
+                           dtype=torch.int32).to(dev)
+    q, k, v = (t.to(dev) for t in _bf16_case(rng, 8, 8, 4, 128, 1024))
+    a = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
+    b = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+    assert _launches(lambda: TKV.bf16_decode_attention_stacked(
+        q, k, v, 1, lengths)) == 1
 
 
 @pytest.mark.cuda
@@ -202,21 +284,68 @@ def test_bf16_append_matches_plain(dev):
     assert torch.equal(kg.cpu(), k) and torch.equal(vg.cpu(), v)
 
 
+def _w16_inputs(rng, M, K, N, L=2):
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((L, K, N)) / np.sqrt(K))
+                         .astype(np.float32)).to(torch.bfloat16)
+    return x, w
+
+
+def _w16_close(got, want):
+    """f32 sums in another order, one rounding: within 2^-7 relative plus
+    1e-5 of the largest output (cancelling sums)."""
+    got, want = f32(got), f32(want)
+    np.testing.assert_allclose(got, want, rtol=2 * BF16_EPS,
+                               atol=1e-5 * np.abs(want).max())
+
+
+# M: decode rows (1, 8, 16; the weight stream), one past it (17) and the
+# TMA/wgmma path's tiles (64, 128, 130 ragged, 1024)
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [3, 8, 130])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64, 128, 130, 1024])
 @pytest.mark.parametrize("K,N", [(512, 256), (1024, 1024)])
 def test_w16_matches_plain(dev, M, K, N):
     """f32 sums in another order, one bf16 rounding: within 2^-7 relative
     plus 1e-5 of the largest output (cancelling sums)."""
     rng = np.random.default_rng(M + K)
-    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
-                         ).to(torch.bfloat16)
-    w = torch.from_numpy((rng.standard_normal((2, K, N)) / np.sqrt(K))
-                         .astype(np.float32)).to(torch.bfloat16)
-    want = f32(TMW.w16_matmul_stacked(x, w, 1))
-    got = f32(TMW.w16_matmul_stacked(x.to(dev), w.to(dev), 1))
-    np.testing.assert_allclose(got, want, rtol=2 * BF16_EPS,
-                               atol=1e-5 * np.abs(want).max())
+    x, w = _w16_inputs(rng, M, K, N)
+    want = TMW.w16_matmul_stacked(x, w, 1)
+    got = TMW.w16_matmul_stacked(x.to(dev), w.to(dev), 1)
+    _w16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 130])
+@pytest.mark.parametrize("K,N", [(14336, 4096), (4096, 1024), (136, 520)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w16_projection_shapes(dev, M, K, N, out_dtype):
+    """The down projection (K = 14336: the decode stream's K split over a
+    cluster), k|v (N = 1024), and K, N that are multiples of 8 but not of
+    the tiles (ragged edges), in both output types, on layer 2 of 3."""
+    rng = np.random.default_rng(K + N + M)
+    x, w = _w16_inputs(rng, M, K, N, L=3)
+    want = TMW.w16_matmul_stacked(x, w, 2, out_dtype=out_dtype)
+    got = TMW.w16_matmul_stacked(x.to(dev), w.to(dev), 2,
+                                 out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    _w16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 130, 1024])
+def test_w16_one_launch_same_bits(dev, M):
+    """One kernel launch a call (a K split, at M = 8 and 130, reduces in
+    the cluster; no second pass, no scratch) and the same bits run to
+    run."""
+    rng = np.random.default_rng(M)
+    x, w = (t.to(dev) for t in _w16_inputs(rng, M, 4096, 4096))
+    before = TMW.LAUNCHES["w16_matmul_stacked"]
+    a = TMW.w16_matmul_stacked(x, w, 1)
+    b = TMW.w16_matmul_stacked(x, w, 1)
+    assert TMW.LAUNCHES["w16_matmul_stacked"] == before + 2
+    assert torch.equal(_bits(a), _bits(b))
+    assert _launches(lambda: TMW.w16_matmul_stacked(x, w, 1)) == 1
 
 
 def _w4_close(got, want):
