@@ -650,6 +650,8 @@ def check_bf16_append(dev, g, cfg):
 # M of the dense bf16 checks: decode (batch 8), the engine's prefill
 # buckets and the per-layer prefill (8 prompts of 512)
 W16_MS = (8, 128, 512, 1024, 4096)
+# M of the stacked weight-only checks (rows 13, 14): the same
+W4_MS = W16_MS
 
 
 def check_w16(dev, g, cfg):
@@ -735,6 +737,10 @@ def _w4_cases(dev, g, shapes, run, plain, scales, scale_bytes, ms=ENGINE_MS):
             got, want = run(x, wp, s, 1), plain(x, wp, s, 1)
             torch.cuda.synchronize()
             err = max(err, matmul_err(got, want, f"{name} M={M}"))
+            again = run(x, wp, s, 1)
+            ensure(torch.equal(bits(got), bits(again)),
+                   f"{name} M={M}: two calls differ")
+            del got, want, again
             t = timings(rotating(lambda j: run(x, wp, s, j), copies),
                         rotating(lambda j: plain(x, wp, s, j), copies),
                         rotating(lambda j: torch.matmul(x, w_deq[j]),
@@ -743,7 +749,8 @@ def _w4_cases(dev, g, shapes, run, plain, scales, scale_bytes, ms=ENGINE_MS):
             b, by = bound_ms(nbytes, 2.0 * M * K * 2 * Nh, "bf16")
             cases.append({"proj": name, "M": M, "K": K, "Nh": Nh,
                           "per_layer": uses, **t, "bound_ms": b,
-                          "bound_by": by})
+                          "bound_by": by,
+                          "vs_library": t["device_ms"] / t["library_ms"]})
         del wp, w_deq
     return cases, err
 
@@ -776,14 +783,16 @@ def check_w4(dev, g, cfg):
         dev, g, shapes,
         lambda x, wp, s, j: MW.w4_matmul_paired_stacked(x, wp, s[j], j),
         lambda x, wp, s, j: MW.w4_matmul_paired_stacked_plain(x, wp, s[j], j),
-        scales, lambda M, Nh: 2 * Nh * 4)            # the paired scales
+        scales, lambda M, Nh: 2 * Nh * 4,            # the paired scales
+        ms=W4_MS)
     return {"name": "w4_matmul_paired_stacked", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
             "replaces": "rsq_tpu/kernels/matmul_w4.py:665",
             "max_abs_err": err, **_layer_total(cases),
             "library": "torch.matmul(x, bf16 dequantized weights)",
             "unit": "one decode layer: qkv, o, upgate, down at M=8",
-            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in "
+                     + ", ".join(map(str, W4_MS)) + "; two calls bit-equal",
             "cases": cases}
 
 
@@ -807,14 +816,16 @@ def check_w4_affine(dev, g, cfg):
                                                         plane_major=True),
         lambda x, wp, s, j: MW.w4_affine_matmul_stacked_plain(
             x, wp, s, j).reshape(x.shape[0], -1),
-        scales, lambda M, Nh: 4 + M * 4)             # sh and the row sums
+        scales, lambda M, Nh: 4 + M * 4,             # sh and the row sums
+        ms=W4_MS)
     return {"name": "w4_affine_matmul_stacked", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/w4_matmul.cu",
             "replaces": "rsq_tpu/kernels/matmul_w4.py:747",
             "max_abs_err": err, **_layer_total(cases),
             "library": "torch.matmul(x, bf16 dequantized weights)",
             "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
-            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in (8, 1024)",
+            "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, M in "
+                     + ", ".join(map(str, W4_MS)) + "; two calls bit-equal",
             "cases": cases}
 
 
@@ -870,7 +881,7 @@ def check_w4_paired(dev, g, cfg):
             "library": "torch.matmul(x, bf16 dequantized weights)",
             "unit": "one decode layer: qkv, o, upgate, down at M=8",
             "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, "
-                     f"M in {layer_ms()}",
+                     f"M in {layer_ms()}; two calls bit-equal",
             "cases": cases}
 
 
@@ -902,7 +913,7 @@ def check_w4_affine_unstacked(dev, g, cfg):
             "library": "torch.matmul(x, bf16 dequantized weights)",
             "unit": "one decode layer: q, k, v, o, up, gate, down at M=8",
             "check": "|err| <= 2^-7 |plain| + 1e-5 max|plain|, "
-                     f"M in {layer_ms()}",
+                     f"M in {layer_ms()}; two calls bit-equal",
             "cases": cases}
 
 

@@ -31,9 +31,10 @@
 //   per Llama-3-8B layer at B=8, fill 512, the same as the paged kernel;
 //   the append, its 2 * B * Hkv * (D/2 + 8) bytes written, so launch
 //   latency.
-// Design: int4_attention.cuh, one block per (b, kv head), 128-token tiles
-//   read with coalesced loads along S.  The append runs one thread per
-//   written element, as paged_attention.cu's does.
+// Design: int4_attention.cuh, a cluster of blocks per (b, kv head) row
+//   splitting it over the sequence, 64-token tiles copied in 16-byte runs
+//   along S (S % 16 == 0).  The append runs one thread per written element,
+//   as paged_attention.cu's does.
 
 #include "int4_attention.cuh"
 
@@ -55,26 +56,13 @@ struct ContiguousAddr {
   }
 };
 
-__global__ void __launch_bounds__(int4_attention::T)
-contiguous_attn_self_append(int4_attention::Args a, int layer, int B, int S) {
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+// grid (cl, B * Hkv) in clusters of (cl, 1, 1): one cluster per (b, h) row
+template <int FORM>
+__global__ void __launch_bounds__(int4_attention::THREADS)
+contiguous_attn(int4_attention::Args a, int layer, int B, int S) {
+  const int b = blockIdx.y / a.Hkv, h = blockIdx.y % a.Hkv;
   const ContiguousAddr at{((size_t)layer * B + b) * a.Hkv + h, a.D / 2, S};
-  int4_attention::self_append(a, at, b, h);
-}
-
-__global__ void __launch_bounds__(int4_attention::T)
-contiguous_attn_read_only(int4_attention::Args a, int layer, int B, int S) {
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
-  const ContiguousAddr at{((size_t)layer * B + b) * a.Hkv + h, a.D / 2, S};
-  int4_attention::read_only(a, at, b, h);
-}
-
-__global__ void __launch_bounds__(int4_attention::T)
-contiguous_attn_read_only_self(int4_attention::Args a, int layer, int B,
-                               int S) {
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
-  const ContiguousAddr at{((size_t)layer * B + b) * a.Hkv + h, a.D / 2, S};
-  int4_attention::read_only_self(a, at, b, h);
+  int4_attention::attend<FORM>(a, at, b, h);
 }
 
 constexpr int APPEND_THREADS = 256;
@@ -111,49 +99,52 @@ kv_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
 
 }  // namespace
 
+// cl: blocks per (b, kv head) row (kv_cache.int4_attention_cluster);
+// width: tokens per staged copy (kv_cache.int4_copy_width)
 extern "C" int contiguous_attention_self_append_launch(
     const void* q, void* kq, void* kp, void* vq, void* vp,
     const void* lengths, const void* k_self, const void* v_self,
     const void* nkq, const void* nkp, const void* nvq, const void* nvp,
     void* out, int B, int layer, int Hkv, int G, int D, int S,
-    float sm_scale, int int8_qk, float inv127, void* stream) {
+    float sm_scale, int int8_qk, float inv127, int cl, int width,
+    void* stream) {
   const int4_attention::Args a = int4_attention::self_args(
       q, kq, kp, vq, vp, lengths, k_self, v_self, nkq, nkp, nvq, nvp, out,
-      Hkv, G, D, sm_scale, int8_qk, inv127);
-  contiguous_attn_self_append<<<B * Hkv, int4_attention::T, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      a, layer, B, S);
-  return (int)cudaGetLastError();
+      Hkv, G, D, sm_scale, int8_qk, inv127, width);
+  return int4_attention::launch(
+      contiguous_attn<int4_attention::kSelfAppend>, cl, B * Hkv, stream, a,
+      layer, B, S);
 }
 
 extern "C" int contiguous_attention_read_only_launch(
     const void* q, const void* kq, const void* kp, const void* vq,
     const void* vp, const void* lengths, void* out, void* m, void* l, int B,
     int layer, int Hkv, int G, int D, int S, float sm_scale, int int8_qk,
-    float inv127, void* stream) {
+    float inv127, int cl, int width, void* stream) {
   int4_attention::Args a = int4_attention::make_args(
-      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127,
+      width);
   a.m_out = static_cast<float*>(m);
   a.l_out = static_cast<float*>(l);
-  contiguous_attn_read_only<<<B * Hkv, int4_attention::T, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      a, layer, B, S);
-  return (int)cudaGetLastError();
+  return int4_attention::launch(
+      contiguous_attn<int4_attention::kReadOnly>, cl, B * Hkv, stream, a,
+      layer, B, S);
 }
 
 extern "C" int contiguous_attention_read_only_self_launch(
     const void* q, const void* kq, const void* kp, const void* vq,
     const void* vp, const void* lengths, const void* k_self,
     const void* v_self, void* out, int B, int layer, int Hkv, int G, int D,
-    int S, float sm_scale, int int8_qk, float inv127, void* stream) {
+    int S, float sm_scale, int int8_qk, float inv127, int cl, int width,
+    void* stream) {
   int4_attention::Args a = int4_attention::make_args(
-      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127,
+      width);
   a.k_self = static_cast<const float*>(k_self);
   a.v_self = static_cast<const float*>(v_self);
-  contiguous_attn_read_only_self<<<B * Hkv, int4_attention::T, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      a, layer, B, S);
-  return (int)cudaGetLastError();
+  return int4_attention::launch(
+      contiguous_attn<int4_attention::kReadOnlySelf>, cl, B * Hkv, stream, a,
+      layer, B, S);
 }
 
 extern "C" int kv_append_launch(void* kq, void* kp, void* vq, void* vp,

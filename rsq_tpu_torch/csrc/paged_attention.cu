@@ -18,8 +18,8 @@
 //     (layer, ptab[b, len // page], h, :, len % page).  Pages are multiples
 //     of 128 here, as in the reference.
 //   read_only: the same tile loop, no self term, no write: out (B, Hq, D)
-//     bf16.  Any page size: a 128-token tile straddles up to 128 / page
-//     pages, and each token is found through the table on its own.  A row
+//     bf16.  Any page size: a 64-token tile straddles up to 64 / page
+//     pages, and each run of tokens is found through the table on its own.  A row
 //     of length 0 gives out NaN (0/0); the serving path appends first, so
 //     it never reads one.
 //   read_only_self: the read-only tile loop, any page size, then the self
@@ -32,12 +32,13 @@
 //   code bytes plus 8 parameter bytes per token, for k and for v, per kv
 //   head) -- about 4.7 MB per Llama-3-8B layer at B=8, fill 512; the append,
 //   its 2 * B * Hkv * (D/2 + 8) bytes written, so launch latency.
-// Design: int4_attention.cuh, one block per (b, kv head), 128-token tiles.
-//   The append runs one thread per written element.  Rows of length 0 (idle
-//   engine slots) all point at the engine's null page and write its column 0
-//   concurrently: a benign race, since no row ever reads that page's content
-//   for a live token.  First version: no split over tiles, so B*Hkv blocks
-//   only.
+// Design: int4_attention.cuh, a cluster of blocks per (b, kv head) row
+//   splitting it over the sequence, 64-token tiles copied in runs of 16
+//   tokens (4, or 1, where the page size does not align them), each run
+//   found through the table.  The append runs one thread per written
+//   element.  Rows of length 0 (idle engine slots) all point at the
+//   engine's null page and write its column 0 concurrently: a benign race,
+//   since no row ever reads that page's content for a live token.
 
 #include "int4_attention.cuh"
 
@@ -66,32 +67,15 @@ struct PagedAddr {
   }
 };
 
-__global__ void __launch_bounds__(int4_attention::T)
-paged_attn_self_append(int4_attention::Args a, const int32_t* __restrict__ ptab,
-                       int layer, int P, int page, int NP) {
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+// grid (cl, B * Hkv) in clusters of (cl, 1, 1): one cluster per (b, h) row
+template <int FORM>
+__global__ void __launch_bounds__(int4_attention::THREADS)
+paged_attn(int4_attention::Args a, const int32_t* __restrict__ ptab,
+           int layer, int P, int page, int NP) {
+  const int b = blockIdx.y / a.Hkv, h = blockIdx.y % a.Hkv;
   const PagedAddr at{ptab + (size_t)b * NP, layer, P, a.Hkv, h, a.D / 2, page,
                      NP};
-  int4_attention::self_append(a, at, b, h);
-}
-
-__global__ void __launch_bounds__(int4_attention::T)
-paged_attn_read_only(int4_attention::Args a, const int32_t* __restrict__ ptab,
-                     int layer, int P, int page, int NP) {
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
-  const PagedAddr at{ptab + (size_t)b * NP, layer, P, a.Hkv, h, a.D / 2, page,
-                     NP};
-  int4_attention::read_only(a, at, b, h);
-}
-
-__global__ void __launch_bounds__(int4_attention::T)
-paged_attn_read_only_self(int4_attention::Args a,
-                          const int32_t* __restrict__ ptab, int layer, int P,
-                          int page, int NP) {
-  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
-  const PagedAddr at{ptab + (size_t)b * NP, layer, P, a.Hkv, h, a.D / 2, page,
-                     NP};
-  int4_attention::read_only_self(a, at, b, h);
+  int4_attention::attend<FORM>(a, at, b, h);
 }
 
 constexpr int APPEND_THREADS = 256;
@@ -129,32 +113,34 @@ paged_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
 
 }  // namespace
 
+// cl: blocks per (b, kv head) row (kv_cache.int4_attention_cluster of
+// NP * page); width: tokens per staged copy (kv_cache.int4_copy_width)
 extern "C" int paged_attention_self_append_launch(
     const void* q, void* kq, void* kp, void* vq, void* vp, const void* ptab,
     const void* lengths, const void* k_self, const void* v_self,
     const void* nkq, const void* nkp, const void* nvq, const void* nvp,
     void* out, int B, int layer, int P, int Hkv, int G, int D, int page,
-    int NP, float sm_scale, int int8_qk, float inv127, void* stream) {
+    int NP, float sm_scale, int int8_qk, float inv127, int cl, int width,
+    void* stream) {
   const int4_attention::Args a = int4_attention::self_args(
       q, kq, kp, vq, vp, lengths, k_self, v_self, nkq, nkp, nvq, nvp, out,
-      Hkv, G, D, sm_scale, int8_qk, inv127);
-  paged_attn_self_append<<<B * Hkv, int4_attention::T, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
-  return (int)cudaGetLastError();
+      Hkv, G, D, sm_scale, int8_qk, inv127, width);
+  return int4_attention::launch(
+      paged_attn<int4_attention::kSelfAppend>, cl, B * Hkv, stream, a,
+      static_cast<const int32_t*>(ptab), layer, P, page, NP);
 }
 
 extern "C" int paged_attention_read_only_launch(
     const void* q, const void* kq, const void* kp, const void* vq,
     const void* vp, const void* ptab, const void* lengths, void* out, int B,
     int layer, int P, int Hkv, int G, int D, int page, int NP, float sm_scale,
-    int int8_qk, float inv127, void* stream) {
+    int int8_qk, float inv127, int cl, int width, void* stream) {
   const int4_attention::Args a = int4_attention::make_args(
-      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
-  paged_attn_read_only<<<B * Hkv, int4_attention::T, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
-  return (int)cudaGetLastError();
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127,
+      width);
+  return int4_attention::launch(
+      paged_attn<int4_attention::kReadOnly>, cl, B * Hkv, stream, a,
+      static_cast<const int32_t*>(ptab), layer, P, page, NP);
 }
 
 extern "C" int paged_attention_read_only_self_launch(
@@ -162,15 +148,15 @@ extern "C" int paged_attention_read_only_self_launch(
     const void* vp, const void* ptab, const void* lengths,
     const void* k_self, const void* v_self, void* out, int B, int layer,
     int P, int Hkv, int G, int D, int page, int NP, float sm_scale,
-    int int8_qk, float inv127, void* stream) {
+    int int8_qk, float inv127, int cl, int width, void* stream) {
   int4_attention::Args a = int4_attention::make_args(
-      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127);
+      q, kq, kp, vq, vp, lengths, out, Hkv, G, D, sm_scale, int8_qk, inv127,
+      width);
   a.k_self = static_cast<const float*>(k_self);
   a.v_self = static_cast<const float*>(v_self);
-  paged_attn_read_only_self<<<B * Hkv, int4_attention::T, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int32_t*>(ptab), layer, P, page, NP);
-  return (int)cudaGetLastError();
+  return int4_attention::launch(
+      paged_attn<int4_attention::kReadOnlySelf>, cl, B * Hkv, stream, a,
+      static_cast<const int32_t*>(ptab), layer, P, page, NP);
 }
 
 extern "C" int paged_append_pool_launch(

@@ -44,18 +44,19 @@
 //     consumers leave the f32 tile in the idle ring.
 
 #include <cooperative_groups.h>
-#include <cuda.h>            // CUtensorMap and its enums (libcuda not linked)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper_tma.cuh"
 #include "smem_ring.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace hopper;
 using namespace smem_ring;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -274,110 +275,6 @@ constexpr int STAGE = A_BYTES + 2 * B_BOX;
 constexpr int PSMEM = PST * STAGE + 1024;    // + room to align to 1024
 constexpr int GROUP_M = 8;                   // row tiles of a raster group
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(saddr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(saddr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(saddr(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(saddr(bar)), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(saddr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(saddr(bar)), "r"(c0), "r"(c1) : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1,
-                                       int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(saddr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// d += A . B over one k16 step: A (64 x 16) K-major and B (16 x 128)
-// MN-major, both 128-byte swizzled in shared memory (descriptors a, b)
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // Sum the f32 partial tiles (BM x BN, row-major) that the cluster's
 // nsplit blocks left in shared memory, in rank order; block `rank` takes
 // quads rank, rank + nsplit, ... and stores them to y.
@@ -520,42 +417,12 @@ w16_tma(const __grid_constant__ CUtensorMap xmap,
   cg::this_cluster().sync();         // no block leaves while read from
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess && p != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 128-byte swizzled bf16 tensor map; dims and box innermost first,
-// strides in bytes of the outer dims.  0 or an error code.
-int encode(CUtensorMap* map, int rank, const void* base,
-           const cuuint64_t* dims, const cuuint64_t* strides,
-           const cuuint32_t* box) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+// A 128-byte swizzled bf16 tensor map
+int encode_bf16(CUtensorMap* map, int rank, const void* base,
+                const cuuint64_t* dims, const cuuint64_t* strides,
+                const cuuint32_t* box) {
+  return hopper::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base,
+                        dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename TOut>
@@ -567,7 +434,7 @@ int launch_tma(const void* x, const void* wmap_bytes, void* y, int M, int K,
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
   const cuuint32_t box[2] = {BK, BM};
-  int rc = encode(&xmap, 2, x, dims, strides, box);
+  int rc = encode_bf16(&xmap, 2, x, dims, strides, box);
   if (rc != 0) return rc;
   static bool ready = false;
   cudaError_t e = allow_smem(w16_tma<TOut>, PSMEM, ready);
@@ -602,7 +469,7 @@ extern "C" int w16_weight_map(void* map, const void* w_all, int L, int K,
                                  (cuuint64_t)K * (cuuint64_t)N * 2};
   const cuuint32_t box[3] = {64, BK, 1};
   CUtensorMap m;
-  const int rc = encode(&m, 3, w_all, dims, strides, box);
+  const int rc = encode_bf16(&m, 3, w_all, dims, strides, box);
   if (rc == 0) memcpy(map, &m, sizeof m);
   return rc;
 }

@@ -278,6 +278,65 @@ def kernel_operands(q, caches, sm_scale):
             1.0 / math.sqrt(D) if sm_scale is None else sm_scale)
 
 
+# The INT4 kernels' sequence split (csrc/int4_attention.cuh): 64-token
+# tiles, at most 8 blocks (one cluster) per (b, kv head) row, sized so that
+# the longest row the cache can hold (S, or the page table's width x page)
+# gives each block at most INT4_TILES_PER_BLOCK tiles; tools/sweep_sizing.py
+# times the choices (PERF.md section 6).
+INT4_TILE = 64
+INT4_TILES_PER_BLOCK = 4
+INT4_MAX_CLUSTER = 8
+
+
+def _cluster(cap: int, tile: int, per_block: int, most: int) -> int:
+    tiles = -(-cap // tile)
+    return max(1, min(most, -(-tiles // per_block)))
+
+
+def _tile_chunks(length: int, cap: int, cl: int, tile: int):
+    n = max(0, min(length, cap))
+    T = -(-n // tile)
+    return [(min(n, r * T // cl * tile), min(n, (r + 1) * T // cl * tile))
+            for r in range(cl)]
+
+
+def int4_attention_cluster(cap: int) -> int:
+    """Blocks per (b, kv head) row of the INT4 decode attention kernels for
+    rows that can hold `cap` tokens.  Sized from the shape, not from the
+    lengths: they live on the card, and reading them would cost the step a
+    sync (and break a CUDA graph's capture)."""
+    return _cluster(cap, INT4_TILE, INT4_TILES_PER_BLOCK, INT4_MAX_CLUSTER)
+
+
+def int4_attention_chunks(length: int, cap: int, cl: int):
+    """The token ranges [start, end) the cl blocks of one row read, in rank
+    order, as the INT4 kernels split them: block r takes 64-token tiles
+    [r*T//cl, (r+1)*T//cl) of the row's T tiles, cut at the length."""
+    return _tile_chunks(length, cap, cl, INT4_TILE)
+
+
+def int4_copy_width(run: int, caches) -> int:
+    """Tokens per staged copy of the INT4 kernels over caches (kq, kp, vq,
+    vp): 16 (16-byte code copies) or 4 (4-byte ones) where every run of
+    `run` contiguous tokens (S, or a page) starts so aligned, else 1 (byte
+    loads); the parameters go in 16-byte copies of 4 tokens beside the
+    first two, 4-byte ones beside the last."""
+    kq, kp, vq, vp = caches
+    params16 = kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0
+    for width in (16, 4):
+        if (run % width == 0 and params16 and kq.data_ptr() % width == 0
+                and vq.data_ptr() % width == 0):
+            return width
+    return 1
+
+
+def int4_split(cap: int, run: int, caches):
+    """(blocks per row, tokens per staged copy) of the INT4 kernels for rows
+    of up to `cap` tokens held in runs of `run` contiguous tokens (S and S
+    for contiguous slots; the table's width x page, and page, for pages)."""
+    return int4_attention_cluster(cap), int4_copy_width(run, caches)
+
+
 # ---------------------------------------------------------------------------
 # Contiguous INT4 attention with self fold and in-place append
 # ---------------------------------------------------------------------------
@@ -359,11 +418,13 @@ def int4_decode_attention_self_append(q, kq_all, kp_all, vq_all, vp_all,
     fn = cuda_build.function(
         "contiguous_attention", "contiguous_attention_self_append_launch",
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
             ptr(lens), ptr(k_self), ptr(v_self), ptr(nkq), ptr(nkp),
             ptr(nvq), ptr(nvp), ptr(out), B, layer, Hkv, G, D, S, sm_scale,
-            int(int8_qk), recip_f32(127.0), stream(q))
+            int(int8_qk), recip_f32(127.0),
+            *int4_split(S, S, (kq_all, kp_all, vq_all, vp_all)), stream(q))
     cuda_build.check(rc, "int4_decode_attention_self_append")
     LAUNCHES["int4_decode_attention_self_append"] += 1
     return out
@@ -420,10 +481,12 @@ def int4_decode_attention_stacked(q, kq_all, kp_all, vq_all, vp_all,
     fn = cuda_build.function(
         "contiguous_attention", "contiguous_attention_read_only_launch",
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
             ptr(lens), ptr(out), ptr(m), ptr(l), B, layer, Hkv, G, D, S,
-            sm_scale, int(int8_qk), recip_f32(127.0), stream(q))
+            sm_scale, int(int8_qk), recip_f32(127.0),
+            *int4_split(S, S, (kq_all, kp_all, vq_all, vp_all)), stream(q))
     cuda_build.check(rc, "int4_decode_attention_stacked")
     LAUNCHES["int4_decode_attention_stacked"] += 1
     return out, m, l
@@ -448,7 +511,7 @@ def int4_decode_attention_stacked_self(q, kq_all, kp_all, vq_all, vp_all,
     online-softmax step.  q: (B, Hq, D) bf16, already per-head
     Hadamard-rotated like the keys; lengths (B,) cached tokens.  Returns
     out (B, Hq, D) bf16, normalized; a row of length 0 gives v_self.
-    `chunk` is the reference's sequence tiling: the port tiles by 128
+    `chunk` is the reference's sequence tiling: the port tiles by 64
     tokens whatever it is."""
     B, Hq, D, (L, Bc, Hkv, D2, S) = check_int4_attention(
         q, kq_all, kp_all, vq_all, vp_all, layer)
@@ -469,10 +532,12 @@ def int4_decode_attention_stacked_self(q, kq_all, kp_all, vq_all, vp_all,
     fn = cuda_build.function(
         "contiguous_attention", "contiguous_attention_read_only_self_launch",
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
             ptr(lens), ptr(k_self), ptr(v_self), ptr(out), B, layer, Hkv, G,
-            D, S, sm_scale, int(int8_qk), recip_f32(127.0), stream(q))
+            D, S, sm_scale, int(int8_qk), recip_f32(127.0),
+            *int4_split(S, S, (kq_all, kp_all, vq_all, vp_all)), stream(q))
     cuda_build.check(rc, "int4_decode_attention_stacked_self")
     LAUNCHES["int4_decode_attention_stacked_self"] += 1
     return out
@@ -520,18 +585,14 @@ def bf16_attention_cluster(S: int) -> int:
     """Blocks per (b, kv head) row of the bf16 decode attention kernel for
     a cache of S tokens.  Sized from S, not from the lengths: they live on
     the card, and reading them would cost the step a sync."""
-    tiles = -(-S // BF16_TILE)
-    return max(1, min(BF16_MAX_CLUSTER, -(-tiles // BF16_TILES_PER_BLOCK)))
+    return _cluster(S, BF16_TILE, BF16_TILES_PER_BLOCK, BF16_MAX_CLUSTER)
 
 
 def bf16_attention_chunks(length: int, S: int, cl: int):
     """The token ranges [start, end) the cl blocks of one row read, in rank
     order, as the kernel splits them: block r takes 64-token tiles
     [r*T//cl, (r+1)*T//cl) of the row's T tiles, cut at the length."""
-    n = max(0, min(length, S))
-    T = -(-n // BF16_TILE)
-    return [(min(n, r * T // cl * BF16_TILE),
-             min(n, (r + 1) * T // cl * BF16_TILE)) for r in range(cl)]
+    return _tile_chunks(length, S, cl, BF16_TILE)
 
 
 def bf16_decode_attention_stacked(q, k_all, v_all, layer: int, lengths,

@@ -10,7 +10,8 @@ Kernels, each with its plain PyTorch version beside it:
   w4a4_matmul_paired (w4a4_matmul un-pairs it): csrc/w4a4_matmul.cu
 - w4_matmul_paired_stacked, w4_affine_matmul_stacked and, on L = 1 views,
   w4_matmul_paired, w4_affine_matmul and w4_matmul (the int4 lm_head):
-  csrc/w4_matmul.cu, one kernel with two epilogues
+  csrc/w4_matmul.cu, a weight stream at M <= 16 and TMA + wgmma beyond,
+  with two epilogues
 - w16_matmul_stacked: csrc/w16_matmul.cu
 - w8_matmul: csrc/w8_matmul.cu
 The unstacked functions take the reference's `decode` (and W4A4's
@@ -97,16 +98,43 @@ def token_scales(x: torch.Tensor, clip_ratio: float = 1.0) -> torch.Tensor:
     return torch.where(absmax == 0, 1.0, mul_div_const(absmax, clip_ratio, 7.0))
 
 
-def _split_k(blocks: int, K: int, per_sm: int = 4, most: int = 1 << 30):
-    """Split K (in 64-value steps, into at most `most` slices) until about
-    `per_sm` blocks per SM of the 132 are in flight, for a launch of
-    `blocks` output blocks: (nsplit, kchunk), kchunk a multiple of 64 and
-    nsplit = ceil(K / kchunk).  The kernels sum the slices in a fixed
+def _split_k(blocks: int, K: int, per_sm: int = 4, most: int = 1 << 30,
+             step: int = 64):
+    """Split K (in `step`-value steps, into at most `most` slices) until
+    about `per_sm` blocks per SM of the 132 are in flight, for a launch of
+    `blocks` output blocks: (nsplit, kchunk), kchunk a multiple of `step`
+    and nsplit = ceil(K / kchunk).  The kernels sum the slices in a fixed
     order, so runs repeat bit for bit."""
-    nsplit = max(1, min(-(-132 * per_sm // blocks), most, -(-K // 64)))
+    nsplit = max(1, min(-(-132 * per_sm // blocks), most, -(-K // step)))
     kchunk = -(-K // nsplit)
-    kchunk = -(-kchunk // 64) * 64
+    kchunk = -(-kchunk // step) * step
     return -(-K // kchunk), kchunk
+
+
+# tensor maps of stacked weights for the TMA kernels, one per (library,
+# address, shape, box rows): a map holds only those, so a reused address
+# stays valid
+_MAPS: dict[tuple, ctypes.Array] = {}
+_MAPS_MAX = 512
+
+
+def _tensor_map(lib: str, symbol: str, w_all, *box):
+    """The tensor map that library `lib`'s `symbol` encodes for the stacked
+    weights w_all (L, K, N) (and the box arguments `box`), cached."""
+    L, K, N = w_all.shape
+    key = (lib, w_all.data_ptr(), L, K, N, *box)
+    m = _MAPS.get(key)
+    if m is None:
+        if len(_MAPS) >= _MAPS_MAX:
+            _MAPS.clear()
+        m = ctypes.create_string_buffer(128)      # sizeof(CUtensorMap)
+        fn = cuda_build.function(
+            lib, symbol,
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * (3 + len(box)))
+        cuda_build.check(fn(m, ptr(w_all), L, K, N, *box),
+                         f"{symbol} tensor map")
+        _MAPS[key] = m
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -256,31 +284,89 @@ def _w4_check(x, wp_all, layer):
     return Nh
 
 
-def _w4_launch(x, wl, scale, xsum):
-    """Launch csrc/w4_matmul.cu on layer weights wl (K, Nh), a view read in
-    place.  scale: paired (2, Nh) f32 (xsum None), or the layer's 0-d sh
-    (affine, with the (M,) f32 row sums xsum).  Returns (M, 2, Nh) bf16."""
+# the weight-only kernel's shape rule and K split (csrc/w4_matmul.cu): M <=
+# 16 streams the weights through blocks of 128 packed columns; M > 16 runs
+# TMA and wgmma on tiles of 64 or 128 rows x 128 packed columns
+# (w4_tma_rows) where the tensor maps can address the weights.  W4_WAVE:
+# the stream's K split is the largest power of two (at most 8) that keeps
+# the blocks within one wave, one an SM, but at least 2 where the column
+# tiles are fewer than the SMs: on the H100 the 24-tile qkv took 0.0116 ms
+# split 4 ways against 0.0141 5 ways and 0.0123 8 ways, the 112-tile
+# up|gate 0.0308 split in two against 0.0302 whole and 0.0387 4 ways
+# (tools/sweep_sizing.py, PERF.md section 6).
+W4_STREAM_COLUMNS = 128
+W4_WAVE = 132
+
+
+def w4_uses_tma(M: int, Nh: int, w_ptr: int) -> bool:
+    """True where the weight-only kernel takes its TMA path: M > 16, Nh %
+    16 == 0 and a 16-byte aligned stacked base.  Fixed by the shape before
+    the launch; every other shape streams the weights through mma.sync."""
+    return M > 16 and Nh % 16 == 0 and w_ptr % 16 == 0
+
+
+def w4_tma_rows(M: int, Nh: int) -> int:
+    """Rows of x a block of the weight-only kernel's TMA path takes: 128,
+    or 64 where the 64-row tiles fill the card in fewer waves than the
+    128-row ones take at 1.6x a 64-row tile's time (on the H100, M=1024:
+    o 0.0582 ms at 128 rows against 0.0733 at 64, qkv 0.1148 against 0.1113
+    -- 192 tiles, two waves -- and k|v 0.0422 against 0.0246: PERF.md
+    section 6)."""
+    def cost(rows, weight):
+        return -(-(-(-M // rows) * -(-Nh // 128)) // 132) * weight
+    return 128 if cost(128, 1.6) <= cost(64, 1.0) else 64
+
+
+def w4_split(M: int, K: int, Nh: int, tma: bool):
+    """(nsplit, kchunk) of the weight-only kernel's K split, reduced inside
+    one thread-block cluster: at most 8 slices of a multiple of 64 rows
+    (128 for the stream's stages).  The stream splits as W4_WAVE says; the
+    TMA path only where its tiles leave SMs idle, and never past one
+    wave."""
+    if tma:
+        tiles = -(-M // w4_tma_rows(M, Nh)) * -(-Nh // 128)
+        return _split_k(tiles, K, per_sm=1, most=max(1, min(8, 132 // tiles)))
+    blocks = -(-Nh // W4_STREAM_COLUMNS) * -(-M // (8 if M <= 8 else 16))
+    fit = min(8, W4_WAVE // blocks)
+    most = max(2 if blocks < W4_WAVE else 1, 1 << max(0, fit.bit_length() - 1))
+    # whole 128-row stages, so no slice's last tile reaches into the next
+    return _split_k(blocks, K, per_sm=8, most=most, step=128)
+
+
+def _w4_launch(x, w_all, layer, scale, xsum, *, affine, adjacent):
+    """Launch csrc/w4_matmul.cu on layer `layer` of w_all (L, K, Nh), read
+    in place.  scale: indexed as the output (paired (2, Nh) or, adjacent,
+    natural (N,) f32), or the layer's 0-d sh (affine) with the (M,) f32 row
+    sums xsum, None to have the kernel take them (M <= 16).  Returns (M, 2 *
+    Nh) bf16, columns plane-paired or adjacent (2j + p).  One launch."""
     M, K = x.shape
-    Nh = wl.shape[1]
+    Nh = w_all.shape[2]
     require(x.dtype == torch.bfloat16, f"kernel needs bf16 x, got {x.dtype}")
     require(K % 8 == 0, "kernel needs K % 8 == 0")
-    require(wl.is_contiguous() and scale.is_contiguous(), "contiguous weights")
+    require(w_all.is_contiguous() and scale.is_contiguous(),
+            "contiguous weights")
+    require(xsum is not None or not affine or M <= 16,
+            "the kernel takes the row sums at M <= 16 only")
     x = x.contiguous()
     require(x.data_ptr() % 16 == 0, "kernel needs a 16-byte aligned x")
-    # whole 16-byte weight loads where rows allow them, else byte loads
-    aligned = Nh % 16 == 0 and wl.data_ptr() % 16 == 0
-    out = torch.empty((M, 2, Nh), dtype=torch.bfloat16, device=x.device)
-    # the slices of a K split are summed in order by a second pass
-    nsplit, kchunk = _split_k(
-        -(-Nh // 128) if M <= 16 else -(-Nh // 64) * -(-M // 64), K)
-    part = (torch.empty((nsplit, M, 2, Nh), dtype=torch.float32,
-                        device=x.device) if nsplit > 1 else out)
+    tma = w4_uses_tma(M, Nh, w_all.data_ptr())
+    nsplit, kchunk = w4_split(M, K, Nh, tma)
+    # tensor maps where they can address the weights: 64-row boxes for the
+    # M > 16 kernel, 128-row ones for the stream; else the stream's byte
+    # loads
+    wmap = smap = None
+    if tma:
+        wmap = _tensor_map("w4_matmul", "w4_weight_map", w_all, 64)
+    elif w4_uses_tma(17, Nh, w_all.data_ptr()):
+        smap = _tensor_map("w4_matmul", "w4_weight_map", w_all, 128)
+    out = torch.empty((M, 2 * Nh), dtype=torch.bfloat16, device=x.device)
     fn = cuda_build.function(
-        "w4_matmul", "w4_matmul_paired_stacked_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    rc = fn(ptr(x), ptr(wl), ptr(scale),
-            None if xsum is None else ptr(xsum), ptr(out), ptr(part),
-            M, K, Nh, kchunk, int(xsum is not None), int(aligned), stream(x))
+        "w4_matmul", "w4_matmul_launch",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    rc = fn(ptr(x), ptr(w_all[layer]), wmap, smap, ptr(scale),
+            None if xsum is None else ptr(xsum), ptr(out), M, K, Nh, layer,
+            kchunk, nsplit, int(affine), int(adjacent), w4_tma_rows(M, Nh),
+            stream(x))
     cuda_build.check(rc, "w4_matmul")
     return out
 
@@ -302,9 +388,10 @@ def w4_matmul_paired_stacked(x, wp_all, scale2, layer: int):
             f"scale2 must be (2, {Nh}) f32")
     if not on_cuda((x, wp_all, scale2)):
         return w4_matmul_paired_stacked_plain(x, wp_all, scale2, layer)
-    out = _w4_launch(x, wp_all[layer], scale2.contiguous(), None)
+    out = _w4_launch(x, wp_all, layer, scale2.contiguous(), None,
+                     affine=False, adjacent=False)
     LAUNCHES["w4_matmul_paired_stacked"] += 1
-    return out
+    return out.reshape(x.shape[0], 2, Nh)
 
 
 def w4_matmul_paired_plain(x, w_packed, scale2):
@@ -323,9 +410,10 @@ def w4_matmul_paired(x, w_packed, scale2, *, decode=None):
             f"scale2 must be (2, {Nh}) f32")
     if not on_cuda((x, w_packed, scale2)):
         return w4_matmul_paired_plain(x, w_packed, scale2)
-    out = _w4_launch(x, w_packed, scale2.contiguous(), None)
+    out = _w4_launch(x, w_packed[None], 0, scale2.contiguous(), None,
+                     affine=False, adjacent=False)
     LAUNCHES["w4_matmul_paired"] += 1
-    return out
+    return out.reshape(x.shape[0], 2, Nh)
 
 
 def row_sums(x):
@@ -353,20 +441,24 @@ def w4_affine_matmul_stacked(x, wp_all, sh_all, layer: int,
     stacked packed weights (L, K, Nh) with per-layer scalar scales sh_all
     (L,) f32: the E8P serving route (weights re-encoded losslessly to affine
     int4).  The constant offset folds into a rank-1 term: y = (x @ q + 0.5
-    * sum_k x) * sh, the row sums computed here.  The kernel reads sh from
-    device memory.  plane_major: byte j holds natural outputs (j, j + Nh),
-    so the un-pairing is a reshape; else the adjacent layout's interleave.
-    Returns (M, 2 * Nh) in x's dtype."""
+    * sum_k x) * sh, the f32 row sums taken inside the kernel at M <= 16
+    and here beyond.  The kernel reads sh from device memory.  plane_major:
+    byte j holds natural outputs (j, j + Nh), so the un-pairing is a
+    reshape; else the adjacent layout's interleave (both written by the
+    kernel itself).  Returns (M, 2 * Nh) in x's dtype."""
     Nh = _w4_check(x, wp_all, layer)
     require(sh_all.shape == (wp_all.shape[0],) and sh_all.dtype == torch.float32,
             "sh_all must be (L,) f32")
-    xsum = row_sums(x)
     if not on_cuda((x, wp_all, sh_all)):
-        y3 = w4_affine_matmul_stacked_plain(x, wp_all, sh_all, layer, xsum)
-    else:
-        y3 = _w4_launch(x, wp_all[layer], sh_all[layer], xsum)
-        LAUNCHES["w4_affine_matmul_stacked"] += 1
-    return y3.reshape(y3.shape[0], 2 * Nh) if plane_major else unpair_outputs(y3)
+        y3 = w4_affine_matmul_stacked_plain(x, wp_all, sh_all, layer)
+        return (y3.reshape(y3.shape[0], 2 * Nh) if plane_major
+                else unpair_outputs(y3))
+    # at decode (M <= 16) the kernel takes the row sums itself
+    y = _w4_launch(x, wp_all, layer, sh_all[layer],
+                   None if x.shape[0] <= 16 else row_sums(x), affine=True,
+                   adjacent=not plane_major)
+    LAUNCHES["w4_affine_matmul_stacked"] += 1
+    return y
 
 
 def w4_affine_matmul_plain(x, w_packed, sh, xsum=None):
@@ -379,20 +471,24 @@ def w4_affine_matmul(x, w_packed, sh, *, decode=None, plane_major: bool = False)
     """y = x @ ((unpack(W) + 0.5) * sh) against unstacked packed weights
     w_packed (K, Nh) with the per-tensor scale sh (a 0-d f32 tensor, read
     by the kernel from device memory): row 14's kernel on the L = 1 view.
-    The row sums of the rank-1 term are taken in f32 here, as the
-    reference does outside its kernel.  Returns (M, 2 * Nh) in x's dtype,
+    The row sums of the rank-1 term are taken in f32, here (as the
+    reference does, outside its kernel) beyond M = 16 and inside the
+    kernel at decode.  Returns (M, 2 * Nh) in x's dtype,
     un-paired by a reshape (plane_major) or the adjacent interleave."""
     require(w_packed.dim() == 2, "w_packed (K, Nh)")
     Nh = _w4_check(x, w_packed[None], 0)
     sh = torch.as_tensor(sh, dtype=torch.float32, device=w_packed.device)
     require(sh.numel() == 1, "sh must be one per-tensor scale")
-    xsum = row_sums(x)
     if not on_cuda((x, w_packed, sh)):
-        y3 = w4_affine_matmul_plain(x, w_packed, sh, xsum)
-    else:
-        y3 = _w4_launch(x, w_packed, sh.reshape(()).contiguous(), xsum)
-        LAUNCHES["w4_affine_matmul"] += 1
-    return y3.reshape(y3.shape[0], 2 * Nh) if plane_major else unpair_outputs(y3)
+        y3 = w4_affine_matmul_plain(x, w_packed, sh)
+        return (y3.reshape(y3.shape[0], 2 * Nh) if plane_major
+                else unpair_outputs(y3))
+    # at decode (M <= 16) the kernel takes the row sums itself
+    y = _w4_launch(x, w_packed[None], 0, sh.reshape(()).contiguous(),
+                   None if x.shape[0] <= 16 else row_sums(x), affine=True,
+                   adjacent=not plane_major)
+    LAUNCHES["w4_affine_matmul"] += 1
+    return y
 
 
 def w4_matmul_plain(x, w_packed, scale):
@@ -404,18 +500,21 @@ def w4_matmul_plain(x, w_packed, scale):
 def w4_matmul(x, w_packed, scale):
     """y = x @ dequant(W) for adjacent-planar packed weights w_packed (K,
     N/2) uint8 with per-column f32 scales (N,): the int4 lm_head.  Runs the
-    weight-only kernel on an L = 1 view with the paired scales and un-pairs
-    its output; any even N (no padding of the weights).  Returns (M, N) in
-    x's dtype."""
+    weight-only kernel on an L = 1 view, writing the adjacent columns with
+    the natural scales; any even N (no padding of the weights).  Returns
+    (M, N) in x's dtype."""
     require(w_packed.dim() == 2, "w_packed (K, N/2)")
     Nh = _w4_check(x, w_packed[None], 0)
     require(scale.shape == (2 * Nh,) and scale.dtype == torch.float32,
             f"scale must be ({2 * Nh},) f32")
     if not on_cuda((x, w_packed, scale)):
         return w4_matmul_plain(x, w_packed, scale)
-    y3 = _w4_launch(x, w_packed, pair_scales(scale).contiguous(), None)
+    # the kernel writes the adjacent layout with the natural scales: no
+    # pairing of the scales, no un-pairing of the output
+    y = _w4_launch(x, w_packed[None], 0, scale.contiguous(), None,
+                   affine=False, adjacent=True)
     LAUNCHES["w4_matmul"] += 1
-    return unpair_outputs(y3)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -425,27 +524,6 @@ def w4_matmul(x, w_packed, scale):
 def w16_matmul_stacked_plain(x, w_all, layer, out_dtype):
     """Plain PyTorch version: f32 products and sums, one rounding."""
     return (x.float() @ w_all[layer].float()).to(out_dtype)
-
-
-# tensor maps of stacked weights for the M > 16 kernel, one per (address,
-# shape): the map holds only those, so a reused address stays valid
-_W16_MAPS: dict[tuple[int, int, int, int], ctypes.Array] = {}
-_W16_MAPS_MAX = 256
-
-
-def _w16_weight_map(w_all):
-    L, K, N = w_all.shape
-    key = (w_all.data_ptr(), L, K, N)
-    m = _W16_MAPS.get(key)
-    if m is None:
-        if len(_W16_MAPS) >= _W16_MAPS_MAX:
-            _W16_MAPS.clear()
-        m = ctypes.create_string_buffer(128)      # sizeof(CUtensorMap)
-        fn = cuda_build.function("w16_matmul", "w16_weight_map",
-                                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
-        cuda_build.check(fn(m, ptr(w_all), L, K, N), "w16 weight tensor map")
-        _W16_MAPS[key] = m
-    return m
 
 
 def w16_matmul_stacked(x, w_all, layer: int, out_dtype=None):
@@ -480,7 +558,7 @@ def w16_matmul_stacked(x, w_all, layer: int, out_dtype=None):
         # so against 0.190-0.205 at 2-4 blocks an SM (PERF.md §6)
         nsplit, kchunk = _split_k(-(-N // 128), K, per_sm=1, most=8)
     else:
-        wmap = _w16_weight_map(w_all)
+        wmap = _tensor_map("w16_matmul", "w16_weight_map", w_all)
         # 128 x 128 tiles, one block an SM: K is split only where the tiles
         # leave SMs idle, and never past one wave
         tiles = -(-M // 128) * -(-N // 128)

@@ -36,6 +36,7 @@ from rsq_tpu_torch.kernels.kv_cache import (asym_quant_pack_head,
                                             attend_tile,
                                             check_int4_attention,
                                             empty_state, finalize_read,
+                                            int4_split,
                                             kernel_operands, q_groups,
                                             self_fold_finalize,
                                             to_lane_major)
@@ -72,6 +73,7 @@ def _gather(pool_layer, page_table):
 def _check_table(page_table, lengths, B):
     require(page_table.dim() == 2 and page_table.shape[0] == B
             and lengths.shape == (B,), "page_table (B, NP), lengths (B,)")
+
 
 
 def paged_self_append_plain(q, kq_all, kp_all, vq_all, vp_all, layer,
@@ -129,12 +131,14 @@ def int4_paged_decode_attention_self_append(q, kq_all, kp_all, vq_all,
     fn = cuda_build.function(
         "paged_attention", "paged_attention_self_append_launch",
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
             ptr(ptab), ptr(lens), ptr(k_self), ptr(v_self), ptr(nkq),
             ptr(nkp), ptr(nvq), ptr(nvp), ptr(out), B, layer, P, Hkv, G, D,
             page, ptab.shape[1], sm_scale, int(int8_qk), recip_f32(127.0),
-            stream(q))
+            *int4_split(ptab.shape[1] * page, page,
+                       (kq_all, kp_all, vq_all, vp_all)), stream(q))
     cuda_build.check(rc, "int4_paged_decode_attention_self_append")
     LAUNCHES["int4_paged_decode_attention_self_append"] += 1
     return out
@@ -205,11 +209,13 @@ def int4_paged_decode_attention_stacked(q, kq_all, kp_all, vq_all, vp_all,
     fn = cuda_build.function(
         "paged_attention", "paged_attention_read_only_launch",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
             ptr(ptab), ptr(lens), ptr(out), B, layer, P, Hkv, G, D, page,
             ptab.shape[1], sm_scale, int(int8_qk), recip_f32(127.0),
-            stream(q))
+            *int4_split(ptab.shape[1] * page, page,
+                       (kq_all, kp_all, vq_all, vp_all)), stream(q))
     cuda_build.check(rc, "int4_paged_decode_attention_stacked")
     LAUNCHES["int4_paged_decode_attention_stacked"] += 1
     return out
@@ -254,11 +260,14 @@ def int4_paged_decode_attention_stacked_self(q, kq_all, kp_all, vq_all,
     fn = cuda_build.function(
         "paged_attention", "paged_attention_read_only_self_launch",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     rc = fn(ptr(q), ptr(kq_all), ptr(kp_all), ptr(vq_all), ptr(vp_all),
             ptr(ptab), ptr(lens), ptr(k_self), ptr(v_self), ptr(out), B,
             layer, P, Hkv, G, D, page, ptab.shape[1], sm_scale, int(int8_qk),
-            recip_f32(127.0), stream(q))
+            recip_f32(127.0), *int4_split(ptab.shape[1] * page, page,
+                                          (kq_all, kp_all, vq_all, vp_all)),
+            stream(q))
     cuda_build.check(rc, "int4_paged_decode_attention_stacked_self")
     LAUNCHES["int4_paged_decode_attention_stacked_self"] += 1
     return out

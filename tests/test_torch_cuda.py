@@ -496,12 +496,14 @@ def _paged_pool(rng, L, P, H, D, page):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("page", [8, 16, 64, 512])
+@pytest.mark.parametrize("page", [6, 8, 16, 64, 512])
 @pytest.mark.parametrize("int8_qk", [False, True])
 def test_paged_read_only_matches_plain(dev, page, int8_qk):
-    """Row 17 at any page size: a 128-token tile straddles 128 / page pages
-    of a table in no pool order; rows end mid-page, on a page boundary and
-    after one token.  Out within 2 bf16 roundings; pools not written."""
+    """Row 17 at any page size: a 64-token tile straddles up to 64 / page
+    pages of a table in no pool order (page 6 is copied token by token, 8
+    in 4-token runs, the rest in 16-token runs); rows end mid-page, on a
+    page boundary and after one token.  Out within 2 bf16 roundings; pools
+    not written."""
     rng = np.random.default_rng(page + int8_qk)
     L, B, Hkv, G, D = 2, 3, 8, 4, 128
     NP = -(-700 // page)
@@ -873,3 +875,265 @@ def test_w4a4_token_scale_in_kernel(dev, M):
                                            s2.to(dev), 0, clip_ratio=0.9)),
         f32(TMW.w4a4_matmul_paired_stacked(x, wp[None], s2, 0,
                                            clip_ratio=0.9)))
+
+
+# ---------------------------------------------------------------------------
+# The weight-only kernel (rows 8-10, 13, 14): the TMA path, the shape rule,
+# the cluster K split, the in-kernel row sums
+# ---------------------------------------------------------------------------
+
+def _w4_inputs(rng, M, K, Nh, L=2):
+    wp = torch.from_numpy(rng.integers(0, 256, (L, K, Nh), dtype=np.uint8))
+    s2 = torch.from_numpy((rng.uniform(0.5, 1.5, (2, Nh)) / (7 * np.sqrt(K))
+                           ).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    return x, wp, s2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [17, 64, 130, 1024, 4096])
+@pytest.mark.parametrize("K,Nh", [(4096, 3072), (1024, 1040), (512, 500)])
+def test_w4_prefill_paths_match_plain(dev, M, K, Nh):
+    """Rows 13 and 14 beyond M = 16: TMA and wgmma where the maps can
+    address the weights (Nh = 3072, and Nh = 1040, whose last 128-column
+    tile is ragged), the mma.sync stream where they cannot (Nh = 500, not a
+    multiple of 16), by the shape rule; K = 1024 at M = 17 is split over a
+    cluster."""
+    rng = np.random.default_rng(M + K + Nh)
+    x, wp, s2 = (t.to(dev) for t in _w4_inputs(rng, M, K, Nh))
+    assert TMW.w4_uses_tma(M, Nh, wp.data_ptr()) == (Nh % 16 == 0)
+    # the plain versions on the card: the same f32 arithmetic, faster
+    _w4_close(TMW.w4_matmul_paired_stacked(x, wp, s2, 1),
+              TMW.w4_matmul_paired_stacked_plain(x, wp, s2, 1))
+    sh = torch.tensor([0.011, 0.017], device=dev)
+    want = TMW.w4_affine_matmul_stacked_plain(x, wp, sh, 1)
+    for pm in (False, True):
+        _w4_close(TMW.w4_affine_matmul_stacked(x, wp, sh, 1, plane_major=pm),
+                  want.reshape(M, 2 * Nh) if pm else TMW.unpair_outputs(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 130])
+def test_w4_unaligned_layer_takes_the_stream(dev, M):
+    """Weights whose stacked base is not 16-byte aligned (a view one byte
+    into its storage) cannot be addressed by a tensor map: the shape rule
+    sends them to the stream's byte loads, which hold against the plain
+    version as the aligned path does."""
+    rng = np.random.default_rng(5 + M)
+    K, Nh = 512, 256
+    x, wp, s2 = _w4_inputs(rng, M, K, Nh)
+    raw = torch.empty(wp.numel() + 1, dtype=torch.uint8, device=dev)
+    wd = raw[1:].view(wp.shape)
+    wd.copy_(wp.to(dev))
+    assert wd.data_ptr() % 16 != 0 and not TMW.w4_uses_tma(M, Nh,
+                                                           wd.data_ptr())
+    _w4_close(TMW.w4_matmul_paired_stacked(x.to(dev), wd, s2.to(dev), 1),
+              TMW.w4_matmul_paired_stacked(x, wp, s2, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,Nh", [(8, 4096, 3072), (16, 14336, 2048),
+                                    (1024, 4096, 512), (130, 4096, 1024)])
+def test_w4_one_launch_same_bits(dev, M, K, Nh):
+    """Each call is one launch (the K split reduced inside a cluster, no
+    w4_reduce, no scratch), and two calls give the same bits (the slices
+    summed in rank order), for rows 13 and 14 (the affine decode path takes
+    no row-sum launch either)."""
+    rng = np.random.default_rng(M + Nh)
+    x, wp, s2 = _w4_inputs(rng, M, K, Nh)
+    x, wp, s2 = x.to(dev), wp.to(dev), s2.to(dev)
+    sh = torch.tensor([0.011, 0.017], device=dev)
+    calls = (lambda: TMW.w4_matmul_paired_stacked(x, wp, s2, 1),
+             lambda: TMW.w4_affine_matmul_stacked(x, wp, sh, 1,
+                                                  plane_major=True))
+    for call in calls:
+        assert torch.equal(_bits(call()), _bits(call()))
+    assert _launches(calls[0]) == 1
+    assert _launches(calls[1]) == (1 if M <= 16 else 2)   # + row_sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_w4_affine_row_sums_in_kernel(dev, M):
+    """At M <= 16 the affine kernel takes the row sums of x itself (each
+    cluster block its K slice, summed in rank order): within the matmul
+    tolerance of the plain version's torch.sum, stacked and unstacked,
+    paired and adjacent; a NaN in one row makes that row NaN, and only it;
+    the int4 lm_head (row 8) is one launch too."""
+    rng = np.random.default_rng(300 + M)
+    K, Nh = 4096, 1024
+    x, wp, _ = _w4_inputs(rng, M, K, Nh, L=1)
+    sh = torch.tensor([0.013])
+    _w4_close(TMW.w4_affine_matmul_stacked(x.to(dev), wp.to(dev),
+                                           sh.to(dev), 0),
+              TMW.w4_affine_matmul_stacked(x, wp, sh, 0))
+    _w4_close(TMW.w4_affine_matmul(x.to(dev), wp[0].to(dev), sh[0].to(dev),
+                                   plane_major=True),
+              TMW.w4_affine_matmul(x, wp[0], sh[0], plane_major=True))
+    if M > 1:
+        xn = x.float().numpy()
+        xn[M - 1, 1234] = np.nan
+        xb = torch.from_numpy(xn).to(torch.bfloat16)
+        want = TMW.w4_affine_matmul_stacked(xb, wp, sh, 0)
+        got = TMW.w4_affine_matmul_stacked(xb.to(dev), wp.to(dev),
+                                           sh.to(dev), 0)
+        assert np.isnan(f32(want[M - 1])).all()
+        assert np.isfinite(f32(want[:M - 1])).all()
+        assert np.isnan(f32(got[M - 1])).all()
+        _w4_close(got[:M - 1], want[:M - 1])
+    sc = torch.from_numpy(rng.uniform(0.001, 0.01, 2 * Nh).astype(np.float32))
+    xd, wd, scd = x.to(dev), wp[0].to(dev), sc.to(dev)
+    _w4_close(TMW.w4_matmul(xd, wd, scd), TMW.w4_matmul(x, wp[0], sc))
+    assert _launches(lambda: TMW.w4_matmul(xd, wd, scd)) == 1
+
+
+# ---------------------------------------------------------------------------
+# The INT4 tile loop (rows 2-4, 17-19): the cluster split over the sequence
+# ---------------------------------------------------------------------------
+
+# lengths at the split's edges for rows of 1024 tokens (4 blocks of up to 4
+# 64-token tiles): empty, one token, a tile's and a block's boundary +- 1,
+# and the last position
+SPLIT_LENGTHS = [0, 1, 63, 64, 65, 255, 256, 257, 1023]
+
+
+def _int4_row_case(rng, row, S=1024):
+    """Inputs of row `row` of the table over rows of S tokens: the cache (a
+    pool at page 16 for rows 17 and 18, 128 for row 19, in no pool order),
+    the table, lengths SPLIT_LENGTHS, q and the new token."""
+    B, Hkv, G, D, L = len(SPLIT_LENGTHS), 8, 4, 128, 2
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32)
+    if row in (2, 3, 4):
+        cache, table = _int4_cache(rng, L, B, Hkv, D, S), ()
+        live = lambda keep: slots_live(lengths, S, keep)   # noqa: E731
+    else:
+        page = {17: 16, 18: 16, 19: 128}[row]
+        NP = S // page
+        P = B * NP + 1
+        cache = [*_paged_pool(rng, L, P, Hkv, D, page),
+                 *_paged_pool(rng, L, P, Hkv, D, page)]
+        table = (torch.from_numpy(rng.permutation(P)[:B * NP]
+                                  .reshape(B, NP).astype(np.int32)),)
+        live = lambda keep: pages_live(table[0], lengths, P, page,  # noqa
+                                       keep)
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    selfs, new = _new_token(rng, B, Hkv, D)
+    return cache, table, lengths, live, q, selfs, new
+
+
+_INT4_FNS = {2: TKV.int4_decode_attention_stacked,
+             3: TKV.int4_decode_attention_stacked_self,
+             4: TKV.int4_decode_attention_self_append,
+             17: TPKV.int4_paged_decode_attention_stacked,
+             18: TPKV.int4_paged_decode_attention_stacked_self,
+             19: TPKV.int4_paged_decode_attention_self_append}
+
+
+def _int4_rest(row, table, lengths, selfs, new):
+    extra = {2: (), 17: (), 3: selfs, 18: selfs}.get(row, (*selfs, *new))
+    return (*table, lengths, *extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [2, 3, 4, 17, 18, 19])
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_int4_split_lengths_match_plain(dev, row, int8_qk):
+    """Every INT4 form at lengths on the split's edges (SPLIT_LENGTHS, rows
+    of 1024 tokens: 4 blocks a row), page 16 with 64-token tiles straddling
+    4 pages, int8 and bf16 QK: out within 4 bf16 roundings + 2e-3 of the
+    plain version (row 2 also m and l within 1e-5 rel + 1e-5; read-only
+    rows of length 0 NaN, -inf, 0); on a copy whose unreachable bytes are
+    poisoned, out bit-equal and the appended column as on the clean run."""
+    rng = np.random.default_rng(600 + row + 50 * int8_qk)
+    cache, table, lengths, live, q, selfs, new = _int4_row_case(rng, row)
+    fn = _INT4_FNS[row]
+    rest = _int4_rest(row, table, lengths, selfs, new)
+    cpu = [t.clone() for t in cache]
+    want = fn(q, *cpu, 1, *rest, int8_qk=int8_qk)
+    gpu = [t.to(dev) for t in cache]
+    drest = [t.to(dev) for t in rest]
+    got = fn(q.to(dev), *gpu, 1, *drest, int8_qk=int8_qk)
+    appends = row in (4, 19)
+    mask = live(int(appends))
+    bad_cache = poisoned([t.to(dev) for t in cache], mask.to(dev))
+    bad = fn(q.to(dev), *bad_cache, 1, *drest, int8_qk=int8_qk)
+    outs = (lambda r: r) if row == 2 else (lambda r: (r,))
+    got, want, bad = outs(got), outs(want), outs(bad)
+    for a, b in zip(got, bad):
+        assert torch.equal(_bits(a), _bits(b))
+    rows = ((lengths > 0).numpy() if row in (2, 17) else slice(None))
+    np.testing.assert_allclose(f32(got[0])[rows], f32(want[0])[rows],
+                               rtol=4 * BF16_EPS, atol=2e-3)
+    if row in (2, 17):
+        assert np.isnan(f32(got[0])[~rows]).all()
+    if row == 2:
+        for g_, w_ in zip(got[1:], want[1:]):
+            g_, w_ = f32(g_), f32(w_)
+            np.testing.assert_allclose(g_[rows], w_[rows], rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_array_equal(g_[~rows], w_[~rows])
+    for g_, c in zip(gpu, cpu):
+        assert torch.equal(g_.cpu(), c)
+    if appends:                      # the written column, as on the clean run
+        for g_, c in zip(bad_cache, poisoned(gpu, mask.to(dev))):
+            if g_.is_floating_point():
+                g_, c = _bits(g_), _bits(c)
+            assert torch.equal(g_, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [2, 3, 4, 17, 18, 19])
+def test_int4_attention_one_launch_same_bits(dev, row):
+    """One launch a call (the cluster merges in shared memory: no second
+    pass, no workspace), and two calls give the same bits (the states merge
+    in rank order)."""
+    rng = np.random.default_rng(700 + row)
+    cache, table, lengths, _, q, selfs, new = _int4_row_case(rng, row)
+    fn = _INT4_FNS[row]
+    gpu = [t.to(dev) for t in cache]
+    drest = [t.to(dev) for t in _int4_rest(row, table, lengths, selfs, new)]
+    qd = q.to(dev)
+    first = fn(qd, *gpu, 1, *drest, int8_qk=True)
+    again = fn(qd, *gpu, 1, *drest, int8_qk=True)
+    for a, b in zip(*((first, again) if row == 2 else ((first,), (again,)))):
+        assert torch.equal(_bits(a), _bits(b))
+    assert _launches(lambda: fn(qd, *gpu, 1, *drest, int8_qk=True)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_paged_self_append_on_shared_pages(dev, int8_qk):
+    """Row 19 == row 18 then row 21 when rows share their prefix pages (a
+    two-page prefix read by three rows, each appending into a page of its
+    own, one of them at a page's first lane): out and pools bit-equal, and
+    within tolerance of the plain version."""
+    rng = np.random.default_rng(800 + int8_qk)
+    L, Hkv, G, D, page, P = 2, 8, 4, 128, 128, 9
+    cache = [*_paged_pool(rng, L, P, Hkv, D, page),
+             *_paged_pool(rng, L, P, Hkv, D, page)]
+    ptab = torch.tensor([[1, 2, 3, 0], [1, 2, 4, 5], [1, 2, 6, 0]],
+                        dtype=torch.int32)
+    lengths = torch.tensor([300, 384, 257], dtype=torch.int32)
+    B = 3
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    selfs, new = _new_token(rng, B, Hkv, D)
+    cpu = [t.clone() for t in cache]
+    want = TPKV.int4_paged_decode_attention_self_append(
+        q, *cpu, 1, ptab, lengths, *selfs, *new, int8_qk=int8_qk)
+    args = [t.to(dev) for t in (ptab, lengths)]
+    dsel, dnew = [t.to(dev) for t in selfs], [t.to(dev) for t in new]
+    fused = [t.to(dev) for t in cache]
+    pair = [t.to(dev) for t in cache]
+    out_f = TPKV.int4_paged_decode_attention_self_append(
+        q.to(dev), *fused, 1, *args, *dsel, *dnew, int8_qk=int8_qk)
+    out_s = TPKV.int4_paged_decode_attention_stacked_self(
+        q.to(dev), *pair, 1, *args, *dsel, int8_qk=int8_qk)
+    TPKV.paged_append_pool(*pair, 1, *args, *dnew)
+    assert torch.equal(out_f, out_s)
+    for a, b, c in zip(fused, pair, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    np.testing.assert_allclose(f32(out_f), f32(want), rtol=4 * BF16_EPS,
+                               atol=2e-3)
