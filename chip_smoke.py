@@ -10,9 +10,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
                 version on the card at the Llama-3-8B serving shapes, with
                 the tolerance stated beside each check; kernel, plain and
                 library-call times (CUDA events) and the least time the
-                card could take.  The attention kernels also run on a copy
-                of their cache with every byte they must not read poisoned
-                (0xFF codes, NaN parameters).  Three kernels (rows 3, 7, 18
+                card could take; first the launch floor, an empty
+                kernel's time (launch_floor_ms).  The attention kernels
+                also run on a copy of their cache with every byte they
+                must not read poisoned (0xFF codes, NaN parameters).
+                decode_prep also runs on the plane-major views of a fused
+                qkv output and on NaN rows, the bf16 append on strided new
+                values.  Three kernels (rows 3, 7, 18
                 of PERF.md's table) lie on no serving path, as their TPU
                 kernels lie on none of the reference's: they must launch 0
                 times in phase 5.
@@ -157,6 +161,23 @@ def matmul_err(got, want, what) -> float:
     if not bool((e <= 2 * BF16_EPS * w + 1e-5 * float(w.max())).all()):
         raise AssertionError(f"{what}: max err {float(e.max())}")
     return float(e.max())
+
+
+def launch_floor():
+    """The launch floor: one launch of an empty kernel <<<64, 192>>> (the
+    grid of decode_prep at Llama-3-8B widths and B = 8), timed as the
+    kernel rows are."""
+    import ctypes
+    from rsq_tpu_torch.kernels import cuda_build
+    fn = cuda_build.function("launch_floor", "empty_launch",
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run(i=0):
+        cuda_build.check(fn(64, 192, st), "empty kernel")
+
+    return {"launch_floor_ms": device_ms(run), "launch_floor_events_ms":
+            time_ms(run), "launch": "<<<64, 192>>>"}
 
 
 def nvidia_smi() -> str:
@@ -326,7 +347,39 @@ def check_w8(dev, g):
             "cases": cases}
 
 
+def same_bits(a, b) -> bool:
+    """Bit-equal, a NaN matching a NaN (the kernel and the plain version
+    may give NaNs different payloads)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(bits(a.masked_fill(na, 0)),
+                                               bits(b.masked_fill(nb, 0)))
+
+
+def _prep_same(got, want, what, skip_codes=None):
+    """decode_prep's seven outputs bit-equal (same_bits); skip_codes: (B,
+    Hkv) rows of k and of v whose codes are left out (a NaN row's codes
+    are undefined in the reference too).  Returns the max abs error."""
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if skip_codes is not None and i in (3, 5):
+            keep = ~skip_codes[int(i == 5)]
+            a, b = a[keep], b[keep]
+        if not same_bits(a, b):
+            raise AssertionError(f"decode_prep {what}: output {i} not "
+                                 "bit-equal")
+        d = (a.float() - b.float()).abs()
+        d = d[~d.isnan()]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
 def check_decode_prep(dev, g, cfg):
+    """Row 1 at the decode step's shapes: B = 8, the Llama-3-8B heads, on
+    (B, H, D) operands, then on the plane-major segment views of a fused
+    (B, 2, N) qkv output (what the decode branches hand it), then with a
+    NaN in one k row and one v row; timed on the views."""
     from rsq_tpu_torch.kernels import kv_cache as KV
     from rsq_tpu_torch.models import llama as LM
     B, Hq, Hkv, D = 8, cfg.num_attention_heads, cfg.num_key_value_heads, \
@@ -336,17 +389,35 @@ def check_decode_prep(dev, g, cfg):
     v = torch.randn((B, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
     pos = torch.randint(100, 1000, (B,), generator=g, device=dev)
     cos, sin = LM.rope_tables(cfg, pos)
-    got = KV.decode_prep(q, k, v, cos, sin)
-    want = KV.decode_prep_plain(q, k, v, cos, sin)
-    torch.cuda.synchronize()
     # same rounding points, no FMA contraction on either side: bit-equal
-    err = 0.0
-    for i, (a, b) in enumerate(zip(got, want)):
-        err = max(err, float((a.float() - b.float()).abs().max()))
-        if not torch.equal(a, b):
-            raise AssertionError(f"decode_prep output {i} not bit-equal")
-    t = timings(lambda i=0: KV.decode_prep(q, k, v, cos, sin),
-                lambda i=0: KV.decode_prep_plain(q, k, v, cos, sin))
+    err = _prep_same(KV.decode_prep(q, k, v, cos, sin),
+                     KV.decode_prep_plain(q, k, v, cos, sin), "(B, H, D)")
+    widths = ((Hq * D) // 2, (Hkv * D) // 2, (Hkv * D) // 2)
+    y3 = torch.randn((B, 2, sum(widths)), generator=g, device=dev).to(
+        torch.bfloat16)
+    segs = [y3[:, :, o:o + w] for o, w in
+            zip((0, widths[0], widths[0] + widths[1]), widths)]
+    got = KV.decode_prep(*segs, cos, sin)
+    err = max(err, _prep_same(got, KV.decode_prep_plain(*segs, cos, sin),
+                              "plane-major"))
+    flat = [t.reshape(B, -1, D) for t in segs]          # copies
+    ensure(all(same_bits(a, b) for a, b in zip(
+        got, KV.decode_prep(*flat, cos, sin))),
+        "decode_prep: plane-major views and their copies differ")
+    kn, vn = flat[1].clone(), flat[2].clone()
+    kn[3, 2, 5] = float("nan")
+    vn[5, 1, 7] = float("nan")
+    got = KV.decode_prep(flat[0], kn, vn, cos, sin)
+    want = KV.decode_prep_plain(flat[0], kn, vn, cos, sin)
+    nan_rows = torch.zeros((2, B, Hkv), dtype=torch.bool, device=dev)
+    nan_rows[0, 3, 2] = nan_rows[1, 5, 1] = True
+    err = max(err, _prep_same(got, want, "NaN rows", skip_codes=nan_rows))
+    ensure(bool(got[4][3, 2].isnan().all() and got[6][5, 1].isnan().all()
+                and got[1][3, 2].isnan().all()
+                and got[2][5, 1].isnan().all()),
+           "decode_prep: a NaN row did not give NaN scale, zero and self")
+    t = timings(lambda i=0: KV.decode_prep(*segs, cos, sin),
+                lambda i=0: KV.decode_prep_plain(*segs, cos, sin))
     nbytes = (B * (Hq + 2 * Hkv) * D * 2 + 2 * B * D * 4      # q, k, v, cos, sin
               + B * Hq * D * 2 + 2 * B * Hkv * D * 4           # qh, k/v self
               + 2 * B * Hkv * (D // 2 + 8))                    # codes, params
@@ -357,8 +428,13 @@ def check_decode_prep(dev, g, cfg):
             "source": "rsq_tpu_torch/csrc/decode_prep.cu",
             "replaces": "rsq_tpu/kernels/kv_cache.py:180",
             "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-            "unit": "one decode layer, B=8",
-            "check": "all seven outputs bit-equal to the plain version"}
+            "unit": "one decode layer, B=8, the plane-major segment views "
+                    "of the fused qkv output",
+            "check": "all seven outputs bit-equal to the plain version on "
+                     "(B, H, D) operands and on plane-major views (the same "
+                     "bits as on their copies); with a NaN in a k and a v "
+                     "row, NaN scale, zero and self there and every other "
+                     "code bit-equal"}
 
 
 def _int4_cache(dev, g, L, B, H, D, S):
@@ -617,17 +693,27 @@ def check_bf16_append(dev, g, cfg):
     H, D = cfg.num_key_value_heads, cfg.head_dim_
     L, B, S = 2, len(CONTIG_LENGTHS), 1024
     k, v = _bf16_cache(dev, g, L, B, H, S, D)
-    nk, nv = (torch.randn((B, H, 1, D), generator=g, device=dev).to(
-        torch.bfloat16) for _ in range(2))
     pos = torch.tensor(CONTIG_LENGTHS, dtype=torch.int32, device=dev)
-    kp, vp = k.clone(), v.clone()
-    KV.kv_append_stacked_bf16(k, v, L - 1, pos, nk, nv)
-    KV.kv_append_bf16_plain(kp, vp, L - 1, pos, nk, nv)
-    torch.cuda.synchronize()
-    ensure(torch.equal(k, kp) and torch.equal(v, vp),
-           "bf16 append: caches differ from the plain version")
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in ((k, kp), (v, vp)))
+    # contiguous nk/nv, then the decode step's strided ones: the roped key
+    # qk[:, :, Hq:].transpose(1, 2) of (B, 1, Hq + H, D), and v's view
+    Hq = cfg.num_attention_heads
+    qk = torch.randn((B, 1, Hq + H, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    vb = torch.randn((B, 1, H * D), generator=g, device=dev).to(
+        torch.bfloat16).reshape(B, 1, H, D).transpose(1, 2)
+    err = 0.0
+    for nk, nv in ((qk[:, :, Hq:].transpose(1, 2).contiguous(),
+                    vb.contiguous()), (qk[:, :, Hq:].transpose(1, 2), vb)):
+        kp, vp = k.clone(), v.clone()
+        KV.kv_append_stacked_bf16(k, v, L - 1, pos, nk, nv)
+        KV.kv_append_bf16_plain(kp, vp, L - 1, pos, nk, nv)
+        torch.cuda.synchronize()
+        ensure(torch.equal(k, kp) and torch.equal(v, vp),
+               "bf16 append: caches differ from the plain version")
+        err = max([err] + [float((a.float() - b.float()).abs().max())
+                           for a, b in ((k, kp), (v, vp))])
+        del kp, vp
+    ensure(not nk.is_contiguous(), "bf16 append: nk should be strided")
     rows, p64 = torch.arange(B, device=dev), pos.long()
 
     def library(i=0):
@@ -643,8 +729,10 @@ def check_bf16_append(dev, g, cfg):
             "replaces": "rsq_tpu/kernels/kv_cache.py:937",
             "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
             "library": "indexed assignment k[layer, b_idx, :, pos] = ...",
-            "unit": "one decode layer, B=8, S=1024",
-            "check": "whole caches bit-equal to the plain version"}
+            "unit": "one decode layer, B=8, S=1024, the decode step's "
+                    "strided nk",
+            "check": "whole caches bit-equal to the plain version, with "
+                     "contiguous and with strided nk/nv"}
 
 
 # M of the dense bf16 checks: decode (batch 8), the engine's prefill
@@ -1946,6 +2034,7 @@ def main(argv):
     # phase 3: kernels
     cfg = ModelConfig.llama3_8b()
     g = torch.Generator(device=dev).manual_seed(0)
+    log(json.dumps({**launch_floor(), "card": smi}))
     kernels = []
     for fn in (lambda: check_w4a4(dev, g), lambda: check_w8(dev, g),
                lambda: check_decode_prep(dev, g, cfg),

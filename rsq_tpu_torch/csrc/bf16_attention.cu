@@ -54,7 +54,14 @@
 //     with pos outside [0, S) writes nothing.
 //   Bound on this card: 4*B*H*D bytes read and written -- trivial; launch
 //     latency dominates.
-//   Design: one block per batch row copies its H*D values of k and of v.
+//   Design: one thread per E-element chunk of a (b, head) row, each copying
+//     that chunk of k and of v with one load and one store each: 16-byte
+//     copies (E = 8) where D and every address allow, else 4 or 2 bytes,
+//     a rule the wrapper fixes before the launch (a D = 128 row is 16
+//     threads; Llama-3-8B at B = 8 is 1,024 threads in 16 blocks).  One
+//     divide a thread, none per element.  nk and nv are read through their
+//     (b, head) strides with a unit stride on D, so the decode step's
+//     transposed roped key goes in without a copy.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -332,21 +339,34 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
   cluster.sync();                    // no block leaves while read from
 }
 
+// E bf16 values a thread copies, as one load and one store of U
+template <int E> struct Chunk;
+template <> struct Chunk<8> { using U = uint4; };
+template <> struct Chunk<2> { using U = uint32_t; };
+template <> struct Chunk<1> { using U = uint16_t; };
+
+template <int E>
 __global__ void kv_append_bf16(__nv_bfloat16* __restrict__ k_all,
                                __nv_bfloat16* __restrict__ v_all,
                                const __nv_bfloat16* __restrict__ nk,
                                const __nv_bfloat16* __restrict__ nv,
                                const int32_t* __restrict__ pos, int B,
-                               int layer, int H, int D, int S) {
-  const int b = blockIdx.x;
+                               int layer, int H, int D, int S, long long nk_sb,
+                               long long nk_sh, long long nv_sb,
+                               long long nv_sh) {
+  using U = typename Chunk<E>::U;
+  const int chunks = D / E;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= B * H * chunks) return;
+  const int r = t / chunks, d = (t - r * chunks) * E;
+  const int b = r / H, h = r - b * H;
   const int p = pos[b];
+  const U kx = *reinterpret_cast<const U*>(nk + b * nk_sb + h * nk_sh + d);
+  const U vx = *reinterpret_cast<const U*>(nv + b * nv_sb + h * nv_sh + d);
   if (p < 0 || p >= S) return;
-  for (int i = threadIdx.x; i < H * D; i += blockDim.x) {
-    const int h = i / D, d = i % D;
-    const size_t dst = ((((size_t)layer * B + b) * H + h) * S + p) * D + d;
-    k_all[dst] = nk[((size_t)b * H + h) * D + d];
-    v_all[dst] = nv[((size_t)b * H + h) * D + d];
-  }
+  const size_t dst = ((((size_t)layer * B + b) * H + h) * S + p) * D + d;
+  *reinterpret_cast<U*>(k_all + dst) = kx;
+  *reinterpret_cast<U*>(v_all + dst) = vx;
 }
 
 }  // namespace
@@ -385,14 +405,33 @@ extern "C" int bf16_decode_attention_launch(
   return (int)cudaGetLastError();
 }
 
+// e: bf16 values a thread copies, 8, 2 or 1; D % e == 0, and every base
+// pointer and nk/nv stride aligned to e values (the wrapper picks e).
 extern "C" int kv_append_bf16_launch(void* k_all, void* v_all, const void* nk,
                                      const void* nv, const void* pos, int B,
                                      int layer, int H, int D, int S,
+                                     long long nk_sb, long long nk_sh,
+                                     long long nv_sb, long long nv_sh, int e,
                                      void* stream) {
-  kv_append_bf16<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(k_all), static_cast<__nv_bfloat16*>(v_all),
-      static_cast<const __nv_bfloat16*>(nk),
-      static_cast<const __nv_bfloat16*>(nv), static_cast<const int32_t*>(pos),
-      B, layer, H, D, S);
+  if ((e != 8 && e != 2 && e != 1) || D % e != 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int T = 64;
+  const int n = B * H * (D / e);
+  const dim3 grid((n + T - 1) / T);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* k = static_cast<__nv_bfloat16*>(k_all);
+  auto* v = static_cast<__nv_bfloat16*>(v_all);
+  auto* a = static_cast<const __nv_bfloat16*>(nk);
+  auto* c = static_cast<const __nv_bfloat16*>(nv);
+  auto* ps = static_cast<const int32_t*>(pos);
+  if (e == 8)
+    kv_append_bf16<8><<<grid, T, 0, st>>>(k, v, a, c, ps, B, layer, H, D, S,
+                                          nk_sb, nk_sh, nv_sb, nv_sh);
+  else if (e == 2)
+    kv_append_bf16<2><<<grid, T, 0, st>>>(k, v, a, c, ps, B, layer, H, D, S,
+                                          nk_sb, nk_sh, nv_sb, nv_sh);
+  else
+    kv_append_bf16<1><<<grid, T, 0, st>>>(k, v, a, c, ps, B, layer, H, D, S,
+                                          nk_sb, nk_sh, nv_sb, nv_sh);
   return (int)cudaGetLastError();
 }

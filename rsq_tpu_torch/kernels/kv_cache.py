@@ -72,9 +72,11 @@ def to_lane_major(packed, params):
 # ---------------------------------------------------------------------------
 
 def decode_prep_plain(q, k, v, cos, sin, kv_had: bool = True):
-    """Plain PyTorch version of decode_prep (same rounding points)."""
-    D = q.shape[-1]
+    """Plain PyTorch version of decode_prep (same rounding points), on the
+    same operands (materialized here as (B, H, D))."""
+    D = cos.shape[-1]
     half = D // 2
+    q, k, v = (t.reshape(t.shape[0], -1, D) for t in (q, k, v))
     c, s = cos.float()[:, None, :], sin.float()[:, None, :]
 
     def rope(x):
@@ -98,42 +100,68 @@ def decode_prep_plain(q, k, v, cos, sin, kv_had: bool = True):
     return qf.to(q.dtype), k_self, v_self, nkq, nkp, nvq, nvp
 
 
+def _prep_rows(t, D: int, per_lane: int):
+    """t (B, N) or (B, X, Y) read in place by the decode_prep kernel: row b,
+    flattened, holds the heads in order.  Returns (tensor, row stride,
+    chunk width Y, chunk stride), in elements; copies only a t whose last
+    axis is strided or whose chunks would split a lane's per_lane
+    elements."""
+    if t.dim() == 2:
+        t = t[:, None]
+    if t.stride(2) != 1 or t.shape[2] % per_lane:
+        t = t.reshape(t.shape[0], -1, D).contiguous()
+    return t, t.stride(0), t.shape[2], t.stride(1)
+
+
 def decode_prep(q, k, v, cos, sin, kv_had: bool = True):
     """Fused decode-token prep: RoPE(q, k) -> per-head Hadamard(q, k) ->
     asymmetric INT4 quant-pack(k, v) + dequantized self values.
 
-    q: (B, Hq, D) bf16; k/v: (B, Hkv, D) bf16; cos/sin: (B, D) f32.
-    Returns (qh (B, Hq, D) bf16, k_self, v_self (B, Hkv, D) f32,
-    nkq (B, Hkv, D/2) u8, nkp (B, Hkv, 2) f32, nvq, nvp)."""
-    require(q.dim() == 3 and k.shape == v.shape and k.dim() == 3,
-            "q (B, Hq, D), k/v (B, Hkv, D)")
-    B, Hq, D = q.shape
-    Hkv = k.shape[1]
-    require(k.shape[0] == B and k.shape[2] == D, "k/v shape mismatch")
-    require(cos.shape == (B, D) and sin.shape == (B, D), "cos/sin (B, D)")
+    q: bf16 (B, Hq * D), or (B, X, Y) with X * Y = Hq * D, whose rows,
+    flattened, hold the Hq heads of D = cos.shape[1] values in order: (B,
+    Hq, D), or a plane-major segment (B, 2, Hq * D / 2) of the fused qkv
+    output (logical column c at plane c // nh, column c % nh).  k, v
+    likewise with Hkv heads.  Read in place through their strides.
+    cos/sin: (B, D) f32.  Returns (qh (B, Hq, D) bf16, k_self, v_self (B,
+    Hkv, D) f32, nkq (B, Hkv, D/2) u8, nkp (B, Hkv, 2) f32, nvq, nvp)."""
+    require(cos.dim() == 2 and sin.shape == cos.shape, "cos/sin (B, D)")
+    B, D = cos.shape
+    require(all(t.dim() in (2, 3) and t.shape[0] == B for t in (q, k, v)),
+            "q/k/v (B, N) or (B, X, Y)")
+    require(k.shape == v.shape, "k/v shape mismatch")
+    Hq, Hkv = q.shape[1:].numel() // D, k.shape[1:].numel() // D
+    require(Hq * D == q.shape[1:].numel() and Hkv * D == k.shape[1:].numel()
+            and Hkv > 0,
+            f"q/k/v rows must hold whole heads of head_dim {D}")
     require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
             and v.dtype == torch.bfloat16, "q/k/v must be bf16")
     if not on_cuda((q, k, v, cos, sin)):
         return decode_prep_plain(q, k, v, cos, sin, kv_had)
     require(D & (D - 1) == 0 and 2 <= D <= 256,
             "kernel needs a power-of-2 head_dim <= 256")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    require(Hq % Hkv == 0, "kernel needs Hq a multiple of Hkv")
+    per_lane = max(1, D // 32)
+    (q, *qr), (k, *kr), (v, *vr) = (_prep_rows(t, D, per_lane)
+                                    for t in (q, k, v))
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
     dev = q.device
-    qh = torch.empty_like(q)
+    qh = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=dev)
     k_self = torch.empty((B, Hkv, D), dtype=torch.float32, device=dev)
     v_self = torch.empty_like(k_self)
     nkq = torch.empty((B, Hkv, D // 2), dtype=torch.uint8, device=dev)
     nvq = torch.empty_like(nkq)
     nkp = torch.empty((B, Hkv, 2), dtype=torch.float32, device=dev)
     nvp = torch.empty_like(nkp)
+    rows = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_longlong]
     fn = cuda_build.function(
         "decode_prep", "decode_prep_launch",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        rows * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    rc = fn(ptr(q), ptr(k), ptr(v), ptr(cos), ptr(sin), ptr(qh), ptr(k_self),
-            ptr(v_self), ptr(nkq), ptr(nkp), ptr(nvq), ptr(nvp), B, Hq, Hkv, D,
-            int(kv_had), 1.0 / math.sqrt(D), recip_f32(15.0), stream(q))
+    rc = fn(ptr(q), *qr, ptr(k), *kr, ptr(v), *vr, ptr(cos), ptr(sin),
+            ptr(qh), ptr(k_self), ptr(v_self), ptr(nkq), ptr(nkp), ptr(nvq),
+            ptr(nvp), B, Hkv, Hq // Hkv, D, int(kv_had), 1.0 / math.sqrt(D),
+            recip_f32(15.0), stream(q))
     cuda_build.check(rc, "decode_prep")
     LAUNCHES["decode_prep"] += 1
     return qh, k_self, v_self, nkq, nkp, nvq, nvp
@@ -646,11 +674,24 @@ def kv_append_bf16_plain(k, v, layer, pos, nk, nv):
     v[layer, rows, :, pos] = nv[:, :, 0].to(v.dtype)
 
 
+def _bf16_chunk(D: int, tensors, strides) -> int:
+    """bf16 values per copy of the append kernel: 8 (16 bytes) where D, the
+    base pointers and the strides allow, else 2 (4 bytes), else 1."""
+    for e in (8, 2):
+        if (D % e == 0 and all(t.data_ptr() % (2 * e) == 0 for t in tensors)
+                and all(s % e == 0 for s in strides)):
+            return e
+    return 1
+
+
 def kv_append_stacked_bf16(k, v, layer: int, pos, nk, nv):
     """Write one token per sequence into layer `layer` of the stacked bf16
     cache in place (the reference aliases it): k/v (L, B, H, S, D) with
     S % 16 == 0, as the reference requires; pos (B,) write positions
-    (< S); nk/nv (B, H, 1, D)."""
+    (< S): a position outside [0, S) raises on the CPU; on the card, where
+    checking it would stall the host, the kernel writes nothing for that
+    row.  nk/nv (B, H, 1, D), read in place through their strides when
+    D's is 1."""
     require(k.dim() == 5 and v.shape == k.shape, "k/v (L, B, H, S, D)")
     L, B, H, S, D = k.shape
     # mirrored: the reference asserts full 16-row windows (kv_cache.py:946)
@@ -660,20 +701,25 @@ def kv_append_stacked_bf16(k, v, layer: int, pos, nk, nv):
     require(pos.shape == (B,) and nk.shape == (B, H, 1, D)
             and nv.shape == nk.shape, "pos (B,), nk/nv (B, H, 1, D)")
     if not on_cuda((k, v, pos, nk, nv)):
+        require(bool(((pos >= 0) & (pos < S)).all()),
+                f"positions must be in [0, max_seq {S})")
         kv_append_bf16_plain(k, v, layer, pos, nk, nv)
         return
     require(k.dtype == torch.bfloat16 and v.dtype == torch.bfloat16,
             "kernel needs a bf16 cache")
     require(k.is_contiguous() and v.is_contiguous(),
             "caches must be contiguous (they are updated in place)")
-    nk = nk.to(torch.bfloat16).contiguous()
-    nv = nv.to(torch.bfloat16).contiguous()
+    nk, nv = (t.to(torch.bfloat16) for t in (nk, nv))
+    nk, nv = (t if t.stride(3) == 1 else t.contiguous() for t in (nk, nv))
+    strides = (nk.stride(0), nk.stride(1), nv.stride(0), nv.stride(1))
+    e = _bf16_chunk(D, (k, v, nk, nv), strides)
     p = pos.to(torch.int32).contiguous()
     fn = cuda_build.function(
         "bf16_attention", "kv_append_bf16_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+        + [ctypes.c_int, ctypes.c_void_p])
     rc = fn(ptr(k), ptr(v), ptr(nk), ptr(nv), ptr(p), B, layer, H, D, S,
-            stream(k))
+            *strides, e, stream(k))
     cuda_build.check(rc, "kv_append_stacked_bf16")
     LAUNCHES["kv_append_stacked_bf16"] += 1
 

@@ -69,19 +69,25 @@ class ServingConfig:
 # Linear dispatch on unstacked params
 # ---------------------------------------------------------------------------
 
-def _segments(y3, widths, biases):
+def _segments(y3, widths, biases, planes: bool = False):
     """Plane-major paired output (M, 2, sum(widths)) of a fused call -> the
-    list of its segments (M, 2 * width), each with its bias added."""
+    list of its segments (M, 2 * width), each with its bias added.  With
+    planes, each segment is the (M, 2, width) view of y3 itself (the decode
+    step's decode_prep reads it in place; a bias, added as (2, width),
+    makes a new tensor either way)."""
     outs, off = [], 0
     for nh, b in zip(widths, biases):
-        seg = y3[:, :, off:off + nh].reshape(y3.shape[0], 2 * nh)
+        seg = y3[:, :, off:off + nh]
         off += nh
-        outs.append(seg if b is None else seg + b.to(seg.dtype))
+        if not planes:
+            seg = seg.reshape(y3.shape[0], 2 * nh)
+        outs.append(seg if b is None
+                    else seg + b.to(seg.dtype).reshape(seg.shape[1:]))
     return outs
 
 
 def _linear(x2, p, sc: ServingConfig, layer: int | None = None,
-            decode: bool | None = None):
+            decode: bool | None = None, planes: bool = False):
     """x2 (M, K) against one linear's params p, dispatched on the layout in
     the reference's order: fused 'wp2' (a list of segment outputs), then
     plane-major 'wpm' (affine with 'sh', else W4A4 or weight-only), affine
@@ -91,7 +97,8 @@ def _linear(x2, p, sc: ServingConfig, layer: int | None = None,
     by the *_stacked kernels (the fast path); None for one layer's
     unstacked params (the per-layer path), whose kernels are the same ones
     on L = 1 views and count their own launches.  decode is the
-    reference's tile hint, which the port's kernels do not need."""
+    reference's tile hint, which the port's kernels do not need.  planes:
+    fused segments as plane-major views (_segments)."""
     x2 = x2.contiguous()
     stacked = layer is not None
 
@@ -120,7 +127,7 @@ def _linear(x2, p, sc: ServingConfig, layer: int | None = None,
         scale2 = torch.cat([at(s) for s in p["scales2"]], dim=1)
         return _segments(paired(p["wp2"], scale2),
                          [s.shape[-1] for s in p["scales2"]],
-                         [at(b) for b in p["bs"]])
+                         [at(b) for b in p["bs"]], planes=planes)
     if "wpm" in p:
         if "sh" in p:
             y = affine(p["wpm"], plane_major=True)
@@ -283,9 +290,12 @@ def _fast_path_helpers(cfg: ModelConfig):
 
 
 def qkv_fast(ls, h2d, i: int, sc: ServingConfig):
-    """(q, k, v) of layer i for (tokens, d) rows: one fused call or three."""
+    """(q, k, v) of layer i for (tokens, d) rows: one fused call, whose
+    outputs are its (tokens, 2, width / 2) plane-major views (decode_prep
+    reads them in place; every other caller reshapes them to heads), or
+    three calls of (tokens, width) each."""
     if "qkv" in ls:
-        return _linear_fast(h2d, ls["qkv"], i, sc)
+        return _linear(h2d, ls["qkv"], sc, layer=i, planes=True)
     return [_linear_fast(h2d, ls[n], i, sc) for n in ("q", "k", "v")]
 
 
@@ -613,8 +623,7 @@ def _decode_step_fast(params, cache, token_ids, sc: ServingConfig):
         q, k, v = qkv_fast(ls, h.reshape(b, -1), i, sc)
         if kv4:
             qh, k_self, v_self, nkq, nkp, nvq, nvp = KVK.decode_prep(
-                q.reshape(b, nq, hd), k.reshape(b, nkv, hd),
-                v.reshape(b, nkv, hd), cos, sin, kv_had=sc.kv_hadamard)
+                q, k, v, cos, sin, kv_had=sc.kv_hadamard)
             attn = KVK.int4_decode_attention_self_append(
                 qh, cache["kq"], cache["kp"], cache["vq"], cache["vp"], i,
                 length, k_self, v_self, nkq, nkp, nvq, nvp,

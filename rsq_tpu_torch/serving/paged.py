@@ -240,7 +240,7 @@ def _decode_paged_local(params, pool, page_tables, lengths, token_ids,
     fused_append = page % 128 == 0
     b = token_ids.shape[0]
     hd = cfg.head_dim_
-    nq, nkv, mix_heads, mix_act = _fast_path_helpers(cfg)
+    nq, _, mix_heads, mix_act = _fast_path_helpers(cfg)
 
     x = params["embed"][token_ids][:, None, :].to(torch.bfloat16)
     cos, sin = M.rope_tables(cfg, lengths)                   # (B, hd)
@@ -249,8 +249,7 @@ def _decode_paged_local(params, pool, page_tables, lengths, token_ids,
         h = M.rms_norm(x, _sl(ls.get("input_norm"), i), cfg.rms_norm_eps)
         q, k, v = qkv_fast(ls, h.reshape(b, -1), i, sc)
         qh, k_self, v_self, kq_, kp_, vq_, vp_ = decode_prep(
-            q.reshape(b, nq, hd), k.reshape(b, nkv, hd),
-            v.reshape(b, nkv, hd), cos, sin, kv_had=sc.kv_hadamard)
+            q, k, v, cos, sin, kv_had=sc.kv_hadamard)
         if fused_append:
             attn = PKV.int4_paged_decode_attention_self_append(
                 qh, pool["kq"], pool["kp"], pool["vq"], pool["vp"], i,

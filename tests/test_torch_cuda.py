@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from rsq_tpu_torch.core.numerics import recip_f32
 from rsq_tpu_torch.kernels import kv_cache as TKV
 from rsq_tpu_torch.kernels import matmul_w4 as TMW
 from rsq_tpu_torch.kernels import paged_kv as TPKV
@@ -97,6 +98,120 @@ def test_decode_prep_matches_plain(dev, kv_had):
         np.testing.assert_array_equal(g.cpu().numpy() if g.dtype != torch.bfloat16
                                       else f32(g), w.numpy() if w.dtype !=
                                       torch.bfloat16 else f32(w))
+
+
+def _same_bits(a, b):
+    """Bit-equal, a NaN matching a NaN (payloads may differ)."""
+    a, b = a.cpu(), b.cpu()
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(_bits(a.masked_fill(na, 0)),
+                                               _bits(b.masked_fill(nb, 0)))
+
+
+def _prep_case(rng, B, Hq, Hkv, D, planes):
+    """(operands(device), cos, sin): q, k, v as (B, H, D) tensors, or as the
+    plane-major segment views of one fused (B, 2, N) output (what the INT4
+    decode branches hand decode_prep), made on `device` from the same
+    values; cos/sin of random angles."""
+    def bf(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(torch.bfloat16)
+    if planes:
+        w = (Hq * D // 2, Hkv * D // 2, Hkv * D // 2)
+        y3 = bf((B, 2, sum(w)))
+
+        def operands(device):
+            y = y3.to(device)
+            return [y[:, :, :w[0]], y[:, :, w[0]:w[0] + w[1]],
+                    y[:, :, w[0] + w[1]:]]
+    else:
+        qkv = [bf((B, H, D)) for H in (Hq, Hkv, Hkv)]
+
+        def operands(device):
+            return [t.to(device) for t in qkv]
+    ang = torch.from_numpy(rng.uniform(0, 100, (B, D)).astype(np.float32))
+    return operands, torch.cos(ang), torch.sin(ang)
+
+
+def _set_logical(t, b, cols, value):
+    """Set row b's logical elements `cols` (head * D + d) of a (B, X, Y)
+    operand, whichever its layout."""
+    cols = torch.as_tensor(cols)
+    t[b, cols // t.shape[2], cols % t.shape[2]] = value
+
+
+# (Hkv, G): G = 1, 4, 8, and MQA (Hkv = 1), also with more jobs (G + 2 =
+# 34) than a block's 16 warps, so that a warp takes several heads
+PREP_HEADS = ((2, 1), (2, 4), (2, 8), (1, 8), (1, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_decode_prep_bit_equal_across_shapes(dev, B, D):
+    """Row 1 bit-equal to the plain version (same rounding points, no FMA
+    contraction on either side) for G in (1, 4, 8) and Hkv = 1 (G = 8 and
+    32), kv_had on and off, on (B, H, D) operands and on plane-major
+    segment views read in place."""
+    rng = np.random.default_rng(1000 * B + D)
+    for Hkv, G in PREP_HEADS:
+        for planes in (False, True):
+            operands, cos, sin = _prep_case(rng, B, Hkv * G, Hkv, D, planes)
+            for kv_had in (True, False):
+                want = TKV.decode_prep(*operands("cpu"), cos, sin,
+                                       kv_had=kv_had)
+                got = TKV.decode_prep(*operands(dev), cos.to(dev),
+                                      sin.to(dev), kv_had=kv_had)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    assert _same_bits(g, w), (Hkv, G, planes, kv_had, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [False, True])
+def test_decode_prep_constant_and_nan_rows(dev, planes):
+    """A constant v row takes the 1e-5 floor on its scale, bit-equal.  A NaN
+    in one k row and one v row gives NaN scale, zero and self values in
+    those rows, as in the plain version and the reference (jnp.max keeps a
+    NaN; fmaxf would drop it).  Those rows' codes are undefined in the
+    reference too (a NaN cast to an integer), so every output is compared
+    bit for bit but those two rows' codes."""
+    rng = np.random.default_rng(7)
+    B, Hkv, G, D = 8, 2, 4, 128
+    operands, cos, sin = _prep_case(rng, B, Hkv * G, Hkv, D, planes)
+    q, k, v = operands("cpu")          # views of the values operands() copies
+    _set_logical(v, 2, range(D, 2 * D), 0.75)               # v row (2, 1)
+    _set_logical(k, 3, [D + 5], float("nan"))               # k row (3, 1)
+    _set_logical(v, 5, [7], float("nan"))                   # v row (5, 0)
+    want = TKV.decode_prep(q, k, v, cos, sin)
+    got = [t.cpu() for t in TKV.decode_prep(*operands(dev), cos.to(dev),
+                                            sin.to(dev))]
+    floor = torch.tensor(1e-5, dtype=torch.float32) * recip_f32(15.0)
+    assert got[6][2, 1, 0] == floor and got[6][2, 1, 1] == -0.75
+    assert got[2][2, 1].eq(0.75).all()
+    for i, row in ((4, (3, 1)), (1, (3, 1)), (6, (5, 0)), (2, (5, 0))):
+        assert got[i][row].isnan().all(), (i, row)
+    keep = torch.ones((B, Hkv), dtype=torch.bool)
+    for i, row in ((3, (3, 1)), (5, (5, 0))):
+        mask = keep.clone()
+        mask[row] = False
+        assert _same_bits(got[i][mask], want[i][mask]), i
+    for i in (0, 1, 2, 4, 6):
+        assert _same_bits(got[i], want[i]), i
+
+
+@pytest.mark.cuda
+def test_decode_prep_one_launch_same_bits(dev):
+    """On the plane-major views at Llama-3-8B heads: one launch a call (no
+    copy of q, k or v), and two calls give the same bits."""
+    rng = np.random.default_rng(8)
+    operands, cos, sin = _prep_case(rng, 8, 32, 8, 128, planes=True)
+    args = (*operands(dev), cos.to(dev), sin.to(dev))
+    a = TKV.decode_prep(*args)
+    b = TKV.decode_prep(*args)
+    assert all(_same_bits(x, y) for x, y in zip(a, b))
+    assert _launches(lambda: TKV.decode_prep(*args)) == 1
 
 
 @pytest.mark.cuda
@@ -282,6 +397,43 @@ def test_bf16_append_matches_plain(dev):
     TKV.kv_append_stacked_bf16(k, v, 1, pos, nk, nv)
     TKV.kv_append_stacked_bf16(kg, vg, 1, pos.to(dev), nk.to(dev), nv.to(dev))
     assert torch.equal(kg.cpu(), k) and torch.equal(vg.cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_bf16_append_strided_new_values(dev, offset):
+    """nk/nv read through their strides: the (B) decode step's transposed
+    roped key, qk[:, :, Hq:].transpose(1, 2) of (B, 1, Hq + H, D), and a
+    transposed v, each at an element offset of 0, 1 or 2 (16-, 2- and
+    4-byte copies).  Positions 0, S - 1 and S (the last writes nothing);
+    every other byte of both caches is unchanged; one launch a call."""
+    rng = np.random.default_rng(11 + offset)
+    L, B, H, Hq, S, D = 2, 4, 8, 32, 64, 128
+
+    def bf(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(torch.bfloat16)
+    k, v = bf((L, B, H, S, D)), bf((L, B, H, S, D))
+    qk, vv = bf((B, 1, Hq + H, D + 2)), bf((B, 1, H, D + 2))
+
+    def new_values(qk, vv):
+        return (qk[:, :, Hq:, offset:offset + D].transpose(1, 2),
+                vv[..., offset:offset + D].transpose(1, 2))
+    nk, nv = new_values(qk, vv)
+    pos = torch.tensor([0, S - 1, S, 17], dtype=torch.int32)
+    want_k, want_v = k.clone(), v.clone()
+    for b in range(B):
+        if pos[b] < S:
+            want_k[1, b, :, pos[b]] = nk[b, :, 0]
+            want_v[1, b, :, pos[b]] = nv[b, :, 0]
+    kg, vg, posg = k.to(dev), v.to(dev), pos.to(dev)
+    nkg, nvg = new_values(qk.to(dev), vv.to(dev))
+    assert not nkg.is_contiguous()
+    TKV.kv_append_stacked_bf16(kg, vg, 1, posg, nkg, nvg)
+    assert torch.equal(_bits(kg.cpu()), _bits(want_k))
+    assert torch.equal(_bits(vg.cpu()), _bits(want_v))
+    assert _launches(lambda: TKV.kv_append_stacked_bf16(
+        kg, vg, 1, posg, nkg, nvg)) == 1
 
 
 def _w16_inputs(rng, M, K, N, L=2):

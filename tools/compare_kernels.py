@@ -8,9 +8,12 @@ one call on one card, in turns (parent, change, change, parent).
     python3 tools/compare_kernels.py ROOT [CHECK ...]
 
 CHECK names a chip_smoke.py function (default: the weight-only and INT4
-attention checks).
+attention checks) or `same_operands`: rows 1 and 6 timed on operands that
+every version of the package takes, beside the launch floor where ROOT
+has it.
 """
 
+import ctypes
 import importlib.util
 import json
 import sys
@@ -23,6 +26,38 @@ CHECKS = ("check_w4", "check_w4_affine", "check_w4_head", "check_w4_paired",
           "check_w4_affine_unstacked", "check_paged_attention",
           "check_contiguous_attention", "check_decode_attention",
           "check_paged_read_only")
+
+
+def same_operands(cs, dev, g, cfg):
+    """decode_prep on contiguous (B, H, D) q, k, v and the bf16 append on
+    contiguous (B, H, 1, D) nk, nv, at the Llama-3-8B decode shapes, B = 8
+    (S = 1024): device ms per call, five readings of 200 calls each."""
+    from rsq_tpu_torch.kernels import cuda_build
+    from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.models import llama as LM
+    B, Hq, Hkv, D = 8, cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim_
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = bf16(B, Hq, D), bf16(B, Hkv, D), bf16(B, Hkv, D)
+    cos, sin = LM.rope_tables(cfg, torch.randint(100, 1000, (B,), generator=g,
+                                                 device=dev))
+    kc, vc = bf16(2, B, Hkv, 1024, D), bf16(2, B, Hkv, 1024, D)
+    pos = torch.randint(0, 1024, (B,), generator=g, device=dev).int()
+    nk, nv = bf16(B, Hkv, 1, D), bf16(B, Hkv, 1, D)
+    runs = {"decode_prep": lambda i=0: KV.decode_prep(q, k, v, cos, sin),
+            "kv_append_stacked_bf16": lambda i=0: KV.kv_append_stacked_bf16(
+                kc, vc, 1, pos, nk, nv)}
+    if "launch_floor" in cuda_build.SOURCES:
+        fn = cuda_build.function("launch_floor", "empty_launch",
+                                 [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        runs["launch_floor"] = lambda i=0: fn(64, 192, st)
+    return {"check": "same_operands",
+            "device_ms": {n: [cs.device_ms(f, iters=200) for _ in range(5)]
+                          for n, f in runs.items()}}
 
 
 def main(argv):
@@ -46,6 +81,9 @@ def main(argv):
     g = torch.Generator(device=dev).manual_seed(0)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     for name in argv[1:] or CHECKS:
+        if name == "same_operands":
+            print(json.dumps(same_operands(cs, dev, g, cfg)), flush=True)
+            continue
         r = getattr(cs, name)(dev, g, cfg)
         out = {"check": name, "kernel": r["name"],
                **{k: r.get(k) for k in keys}}
