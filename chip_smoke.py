@@ -16,7 +16,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
                 must not read poisoned (0xFF codes, NaN parameters).
                 decode_prep also runs on the plane-major views of a fused
                 qkv output and on NaN rows, the bf16 append on strided new
-                values.  Three kernels (rows 3, 7, 18
+                values, the self-appending INT4 attention on a query with
+                a NaN head under int8_qk.  Three kernels (rows 3, 7, 18
                 of PERF.md's table) lie on no serving path, as their TPU
                 kernels lie on none of the reference's: they must launch 0
                 times in phase 5.
@@ -508,6 +509,17 @@ def check_paged_attention(dev, g, cfg):
             if not torch.equal(bits(x), bits(y)):
                 raise AssertionError(f"paged attention poisoned pool {n}")
         del pk, pp, px
+    qn, head = _nan_head(q)
+    pk = [pool[n].clone() for n in names]
+    pp = [pool[n].clone() for n in names]
+    got = PKV.int4_paged_decode_attention_self_append(qn, *pk, L - 1, *rest,
+                                                      int8_qk=True)
+    want = PKV.paged_self_append_plain(qn, *pp, L - 1, *rest, int8_qk=True)
+    err = max(err, _nan_head_err(got, want, head,
+                                 "paged attention, NaN query head"))
+    ensure(all(torch.equal(a, b) for a, b in zip(pk, pp)),
+           "paged attention, NaN query head: pools differ")
+    del pk, pp
     pl = [pool[n] for n in names]
     t = timings(rotating(lambda j: PKV.int4_paged_decode_attention_self_append(
                     q, *pl, j, *rest, int8_qk=True), L),
@@ -528,7 +540,8 @@ def check_paged_attention(dev, g, cfg):
                     + ",".join(str(int(x)) for x in lengths) + ", int8_qk",
             "check": "out within 4*2^-8 rel + 2e-3 of the plain version, "
                      "int8_qk on and off, also on a poisoned pool; pools "
-                     "bit-equal after the append"}
+                     "bit-equal after the append; a query with a NaN head "
+                     "under int8_qk: NaN in that head alone"}
 
 
 # one decode layer of the contiguous phases: 8 slots of 1024 tokens, fill
@@ -576,6 +589,17 @@ def check_contiguous_attention(dev, g, cfg):
             if not torch.equal(bits(x), bits(y)):
                 raise AssertionError(f"contiguous attention poisoned {n}")
         del ck, cp, cx
+    qn, head = _nan_head(q)
+    ck = [t.clone() for t in cache]
+    cp = [t.clone() for t in cache]
+    got = KV.int4_decode_attention_self_append(qn, *ck, L - 1, *rest,
+                                               int8_qk=True)
+    want = KV.self_append_plain(qn, *cp, L - 1, *rest, int8_qk=True)
+    err = max(err, _nan_head_err(got, want, head,
+                                 "contiguous attention, NaN query head"))
+    ensure(all(torch.equal(a, b) for a, b in zip(ck, cp)),
+           "contiguous attention, NaN query head: caches differ")
+    del ck, cp
     big = _int4_cache(dev, g, TIMING_LAYERS, B, Hkv, D, S)
     t = timings(rotating(lambda j: KV.int4_decode_attention_self_append(
                     q, *big, j, *rest, int8_qk=True), TIMING_LAYERS),
@@ -596,7 +620,8 @@ def check_contiguous_attention(dev, g, cfg):
                     + ",".join(map(str, CONTIG_LENGTHS)) + ", int8_qk",
             "check": "out within 4*2^-8 rel + 2e-3 of the plain version, "
                      "int8_qk on and off, also on a poisoned cache; caches "
-                     "bit-equal after the append"}
+                     "bit-equal after the append; a query with a NaN head "
+                     "under int8_qk: NaN in that head alone"}
 
 
 def _bf16_cache(dev, g, L, B, H, S, D):
@@ -1015,6 +1040,27 @@ def _attn_err(got, want, what):
     return float(e.max())
 
 
+def _nan_head(q):
+    """q with a NaN at (0, 5, 17) (at Llama-3-8B widths kv head 1, query
+    row 1), and the mask of that query head."""
+    h, d = min(5, q.shape[1] - 1), min(17, q.shape[2] - 1)
+    qn = q.clone()
+    qn[0, h, d] = math.nan
+    head = torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    head[0, h] = True
+    return qn, head
+
+
+def _nan_head_err(got, want, head, what):
+    """A query with a NaN head under int8_qk: NaN in that head alone, in
+    the kernel's output as in the plain version's; the other heads by
+    _attn_err.  Returns their max error."""
+    ensure(torch.equal(torch.isnan(want), head)
+           and torch.equal(torch.isnan(got), head),
+           f"{what}: NaN pattern differs from the query's NaN head")
+    return _attn_err(got[~head], want[~head], what)
+
+
 def _self_token(KV, dev, g, B, Hkv, D):
     """The new token's dequantized (k_self, v_self), (B, Hkv, D) f32."""
     return tuple(KV.unpack_dequant_head(*KV.asym_quant_pack_head(
@@ -1073,6 +1119,26 @@ def check_decode_attention(dev, g, cfg, fold=False):
                and bool((got[1][~live] == -math.inf).all())
                and bool((got[2][~live] == 0).all()),
                "decode attention length-0 row")
+    # a query with a NaN head under int8_qk: NaN in that head alone (rows
+    # of length 0 aside); row 2's m and l NaN in that head's entry alone
+    qn, head = _nan_head(q)
+    got, want = ([r] if fold else list(r)
+                 for r in (kernel(qn, *cache, L - 1, lengths, *selfs,
+                                  int8_qk=True),
+                           plain(qn, *cache, L - 1, lengths, *selfs,
+                                 int8_qk=True)))
+    rows = slice(None) if fold else live
+    err = max(err, _nan_head_err(got[0][rows], want[0][rows], head[rows],
+                                 f"{what}, NaN query head"))
+    ml = head.any(-1).reshape(B, Hkv, G)[live]
+    for a, w in zip(got[1:], want[1:]):
+        ensure(torch.equal(torch.isnan(a[live]), ml)
+               and torch.equal(torch.isnan(w[live]), ml),
+               "decode attention m/l, NaN query head: NaN pattern differs")
+        e = (a[live][~ml] - w[live][~ml]).abs()
+        ensure(bool((e <= 1e-5 * w[live][~ml].abs() + 1e-5).all()),
+               f"decode attention m/l, NaN query head: max err "
+               f"{float(e.max())}")
     ensure(all(torch.equal(a, b) for a, b in zip(cache, before)),
            f"{what} wrote the cache")
     del cache, before, bad_cache
@@ -1099,14 +1165,17 @@ def check_decode_attention(dev, g, cfg, fold=False):
                 "check": "out within 4*2^-8 rel + 2e-3 of the plain version "
                          "(the length-0 row: v_self), int8_qk off and on; "
                          "cache unchanged; on a poisoned cache out bit-equal "
-                         "to the clean run"}
+                         "to the clean run; a query with a NaN head under "
+                         "int8_qk: NaN in that head alone"}
     return {"name": "int4_decode_attention_stacked", "route": "cuda",
             "source": "rsq_tpu_torch/csrc/contiguous_attention.cu",
             "replaces": "rsq_tpu/kernels/kv_cache.py:497", **common,
             "check": "out within 4*2^-8 rel + 2e-3 where the length is not "
                      "0, m and l within 1e-5 rel + 1e-5, int8_qk off and "
                      "on; length-0 row NaN, -inf, 0; cache unchanged; on a "
-                     "poisoned cache out, m, l bit-equal to the clean run"}
+                     "poisoned cache out, m, l bit-equal to the clean run; "
+                     "a query with a NaN head under int8_qk: NaN in that "
+                     "head's out, m and l alone"}
 
 
 # one decode layer of the paged phases: 8 rows of 300-700 tokens
@@ -1162,6 +1231,11 @@ def check_paged_read_only(dev, g, cfg, fold=False):
                                                 f"int8_qk={int8_qk}"),
                       _attn_err(bad, want, f"{what} page {page} "
                                            f"int8_qk={int8_qk}, poisoned"))
+        qn, head = _nan_head(q)
+        err = max(err, _nan_head_err(
+            kernel(qn, *pool, 1, ptab, lengths, *selfs, int8_qk=True),
+            plain(qn, *pool, 1, ptab, lengths, *selfs, int8_qk=True), head,
+            f"{what} page {page}, NaN query head"))
         ensure(all(torch.equal(a, b) for a, b in zip(pool, before)),
                f"{what} wrote the pool")
         del before, bad_pool
@@ -1184,7 +1258,8 @@ def check_paged_read_only(dev, g, cfg, fold=False):
               "check": "out within 4*2^-8 rel + 2e-3, pages "
                        + " and ".join(str(c["page"]) for c in cases)
                        + ", int8_qk off and on, also on a poisoned pool; "
-                         "pool unchanged",
+                         "pool unchanged; a query with a NaN head under "
+                         "int8_qk: NaN in that head alone",
               "cases": cases}
     if fold:
         return {"name": "int4_paged_decode_attention_stacked_self",
@@ -1242,10 +1317,10 @@ def check_kv_append(dev, g, cfg):
 
 
 def check_paged_append(dev, g, cfg):
-    """Row 21, the pool append of the page-16 path, at pages 16 and 512
-    (rows 0 and 1 share a page at different lanes): pools bit-equal to the
-    plain version's; timed with indexed assignment as the library call.
-    The top-level times are page 16's."""
+    """Row 21, the pool append of the page-16 path, at pages 16, 24 (not a
+    power of two) and 512 (rows 0 and 1 share a page at different lanes):
+    pools bit-equal to the plain version's; timed with indexed assignment
+    as the library call.  The top-level times are page 16's."""
     from rsq_tpu_torch.kernels import kv_cache as KV
     from rsq_tpu_torch.kernels import paged_kv as PKV
     H, D = cfg.num_key_value_heads, cfg.head_dim_
@@ -1255,7 +1330,7 @@ def check_paged_append(dev, g, cfg):
               for _ in range(2))
     new = (*KV.asym_quant_pack_head(nk), *KV.asym_quant_pack_head(nv))
     cases, err = [], 0.0
-    for page in (16, 512):
+    for page in (16, 24, 512):
         pool, ptab = _paged_pool(dev, g, L, H, D, page, PAGED_LENGTHS)
         # row 1 appends into row 0's page, at another lane
         ptab[1, PAGED_LENGTHS[1] // page] = ptab[0, PAGED_LENGTHS[0] // page]
@@ -1294,8 +1369,8 @@ def check_paged_append(dev, g, cfg):
                                         "bound_by")},
             "library": "indexed assignment pool[layer, pid, :, :, col] = ...",
             "unit": "one decode layer, B=8, page 16",
-            "check": "whole pools bit-equal to the plain version, pages 16 "
-                     "and 512, two rows appending into one page",
+            "check": "whole pools bit-equal to the plain version, pages 16, "
+                     "24 and 512, two rows appending into one page",
             "cases": cases}
 
 

@@ -33,8 +33,8 @@
 //   latency.
 // Design: int4_attention.cuh, a cluster of blocks per (b, kv head) row
 //   splitting it over the sequence, 64-token tiles copied in 16-byte runs
-//   along S (S % 16 == 0).  The append runs one thread per written element,
-//   as paged_attention.cu's does.
+//   along S (S % 16 == 0).  The append is int4_append.cuh's column writer,
+//   a warp per (b, h, k or v), on the address this file's functor gives.
 
 #include "int4_attention.cuh"
 
@@ -49,7 +49,7 @@ struct ContiguousAddr {
   __device__ size_t codes(int t) const { return head * D2 * S + t; }
   __device__ size_t params(int t) const { return head * 2 * S + t; }
   __device__ bool append(int len, size_t* c, size_t* p) const {
-    if (len >= S) return false;
+    if ((unsigned)len >= (unsigned)S) return false;   // nothing past the row
     *c = codes(len);
     *p = params(len);
     return true;
@@ -65,36 +65,15 @@ contiguous_attn(int4_attention::Args a, int layer, int B, int S) {
   int4_attention::attend<FORM>(a, at, b, h);
 }
 
-constexpr int APPEND_THREADS = 256;
-
-// Thread i writes one element of column pos[b] of layer `layer`: k then v;
-// per (b, h) the D/2 code bytes, then the two parameters.
-__global__ void __launch_bounds__(APPEND_THREADS)
-kv_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
-          uint8_t* __restrict__ vq, float* __restrict__ vp,
-          const int32_t* __restrict__ pos, const uint8_t* __restrict__ nkq,
-          const float* __restrict__ nkp, const uint8_t* __restrict__ nvq,
-          const float* __restrict__ nvp, int B, int layer, int H, int D2,
-          int S) {
-  const int per_head = D2 + 2;
-  const int per_kv = B * H * per_head;
-  int i = blockIdx.x * APPEND_THREADS + threadIdx.x;
-  if (i >= 2 * per_kv) return;
-  const bool is_v = i >= per_kv;
-  i -= is_v ? per_kv : 0;
-  const int bh = i / per_head, x = i % per_head;
-  const int b = bh / H;
-  const size_t head = (size_t)layer * B * H + bh;   // (layer, b, h)
-  const int col = pos[b];
-  if ((unsigned)col >= (unsigned)S) return;   // writes nothing past the row
-  if (x < D2) {
-    (is_v ? vq : kq)[(head * D2 + x) * S + col] =
-        (is_v ? nvq : nkq)[(size_t)bh * D2 + x];
-  } else {
-    const int j = x - D2;
-    (is_v ? vp : kp)[(head * 2 + j) * S + col] =
-        (is_v ? nvp : nkp)[(size_t)bh * 2 + j];
-  }
+// grid (2 * H, B) of one warp: block (2h + half, b) writes half `half` (k,
+// v) of row (b, h)'s column pos[b] of layer `layer`
+__global__ void __launch_bounds__(32)
+kv_append(int4_append::Column a, const int32_t* __restrict__ pos, int B,
+          int layer, int H, int D2, int S) {
+  const int b = blockIdx.y, h = blockIdx.x >> 1;
+  const ContiguousAddr at{((size_t)layer * B + b) * H + h, D2, S};
+  int4_append::write_half(a, at, pos[b], (size_t)b * H + h, D2,
+                          blockIdx.x & 1);
 }
 
 }  // namespace
@@ -152,13 +131,8 @@ extern "C" int kv_append_launch(void* kq, void* kp, void* vq, void* vp,
                                 const void* nkp, const void* nvq,
                                 const void* nvp, int B, int layer, int H,
                                 int D2, int S, void* stream) {
-  const int n = 2 * B * H * (D2 + 2);
-  kv_append<<<(n + APPEND_THREADS - 1) / APPEND_THREADS, APPEND_THREADS, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(kq), static_cast<float*>(kp),
-      static_cast<uint8_t*>(vq), static_cast<float*>(vp),
-      static_cast<const int32_t*>(pos), static_cast<const uint8_t*>(nkq),
-      static_cast<const float*>(nkp), static_cast<const uint8_t*>(nvq),
-      static_cast<const float*>(nvp), B, layer, H, D2, S);
+  kv_append<<<dim3(2 * H, B), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      int4_append::column(kq, kp, vq, vp, nkq, nkp, nvq, nvp),
+      static_cast<const int32_t*>(pos), B, layer, H, D2, S);
   return (int)cudaGetLastError();
 }

@@ -58,9 +58,15 @@
 //     warps' in the block, then the CL blocks' in rank order through
 //     distributed shared memory; an empty state weighs 0.  The blocks share
 //     the row's output elements; each folds the new token into its own.
-//     The self-append form's rank 0 writes the new column after the cluster
-//     barrier that follows every block's last read of the row, so no append
-//     is lost.  One launch, no workspace.
+//     The self-append form's rank 0 writes the new column (int4_append.cuh,
+//     a warp for k and one for v) after the cluster barrier that follows
+//     every block's last read of the row, so no append is lost.  One
+//     launch, no workspace.
+//   - NaN: a query row with a NaN keeps it through the int8_qk scale (an
+//     integer max of |q|'s bits), the running max (max.NaN) and the merges
+//     (a state is empty only at l = 0), so that row's logits, m, l and
+//     output come out NaN, as the plain version's amax and maximum give,
+//     and the other rows of its (b, kv head) row are untouched.
 //
 // Addressing functor (the codes and parameters of one (b, h) share it):
 //   int cap() const              tokens the row can address (reads stop there)
@@ -70,7 +76,7 @@
 //   size_t params(int t) const   offset of (row 0, token t) in kp / vp
 //   bool append(int len, size_t* c, size_t* p) const
 //                                the new token's column; false: write nothing
-//                                (self_append only)
+//                                (self_append, and the standalone appends)
 
 #pragma once
 
@@ -80,6 +86,7 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "int4_append.cuh"
 #include "smem_ring.cuh"
 
 namespace int4_attention {
@@ -104,17 +111,13 @@ enum Form { kReadOnly = 0, kReadOnlySelf = 1, kSelfAppend = 2 };
 
 struct Args {
   const __nv_bfloat16* q;     // (B, Hq, D)
-  uint8_t* kq;                // codes (updated in place by self_append)
-  float* kp;                  // (scale, zero)
-  uint8_t* vq;
-  float* vp;
+  int4_append::Column c;      // the codes and (scale, zero) (updated in
+                              // place by self_append) and the new token's
+                              // (B, Hkv, D/2) codes and (B, Hkv, 2)
+                              // parameters (self_append only)
   const int32_t* lengths;     // (B,) cached tokens
   const float* k_self;        // (B, Hkv, D) dequantized new token (self forms)
   const float* v_self;
-  const uint8_t* nkq;         // (B, Hkv, D/2) its codes (self_append)
-  const float* nkp;           // (B, Hkv, 2) its (scale, zero)
-  const uint8_t* nvq;
-  const float* nvp;
   __nv_bfloat16* out;         // (B, Hq, D)
   int Hkv, G, D;
   float sm_scale;
@@ -135,10 +138,8 @@ inline Args make_args(const void* q, const void* kq, const void* kp,
                       int int8_qk, float inv127, int width) {
   Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kq = static_cast<uint8_t*>(const_cast<void*>(kq));
-  a.kp = static_cast<float*>(const_cast<void*>(kp));
-  a.vq = static_cast<uint8_t*>(const_cast<void*>(vq));
-  a.vp = static_cast<float*>(const_cast<void*>(vp));
+  a.c = int4_append::column(kq, kp, vq, vp, nullptr, nullptr, nullptr,
+                            nullptr);
   a.lengths = static_cast<const int32_t*>(lengths);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.Hkv = Hkv; a.G = G; a.D = D;
@@ -158,10 +159,7 @@ inline Args self_args(const void* q, void* kq, void* kp, void* vq, void* vp,
                      int8_qk, inv127, width);
   a.k_self = static_cast<const float*>(k_self);
   a.v_self = static_cast<const float*>(v_self);
-  a.nkq = static_cast<const uint8_t*>(nkq);
-  a.nkp = static_cast<const float*>(nkp);
-  a.nvq = static_cast<const uint8_t*>(nvq);
-  a.nvp = static_cast<const float*>(nvp);
+  a.c = int4_append::column(kq, kp, vq, vp, nkq, nkp, nvq, nvp);
   return a;
 }
 
@@ -233,11 +231,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// max that keeps a NaN, as torch.maximum and jnp.maximum do (fmaxf drops
+// one), so a NaN logit gives its query row m = NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // Row b, kv head h of form FORM, run by block blockIdx.x (the cluster rank)
@@ -281,11 +280,11 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
       uint8_t* kd = kt + r * CP + c * W;
       uint8_t* vd = vt + r * CP + c * W;
       if (W == 1) {
-        *kd = n > 0 ? a.kq[off] : 0;
-        *vd = n > 0 ? a.vq[off] : 0;
+        *kd = n > 0 ? a.c.kq[off] : 0;
+        *vd = n > 0 ? a.c.vq[off] : 0;
       } else {
-        cp_async(kd, a.kq + off, n, W);
-        cp_async(vd, a.vq + off, n, W);
+        cp_async(kd, a.c.kq + off, n, W);
+        cp_async(vd, a.c.vq + off, n, W);
       }
     }
     const int PW = W == 1 ? 1 : 4, pper = TT / PW;
@@ -293,8 +292,8 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
       const int r = i / pper, c = i % pper, tok = j * TT + c * PW;
       const int n = max(0, min(PW, len - tok));
       const size_t off = n > 0 ? at.params(tok) + (size_t)r * stride : 0;
-      cp_async(kpar + r * TT + c * PW, a.kp + off, 4 * n, 4 * PW);
-      cp_async(vpar + r * TT + c * PW, a.vp + off, 4 * n, 4 * PW);
+      cp_async(kpar + r * TT + c * PW, a.c.kp + off, 4 * n, 4 * PW);
+      cp_async(vpar + r * TT + c * PW, a.c.vp + off, 4 * n, 4 * PW);
     }
   };
 
@@ -318,10 +317,13 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
       qf[gg][d] = v[i];
     }
     if (i8) {
-      float mx = 0.0f;
+      // max |q| as unsigned bits: a NaN's lie above +inf's, so the max
+      // keeps it and the head's scale, logits and output come out NaN
+      unsigned mb = 0;
 #pragma unroll
-      for (int i = 0; i < MAXD / 32; ++i) mx = fmaxf(mx, fabsf(v[i]));
-      mx = warp_max(mx);
+      for (int i = 0; i < MAXD / 32; ++i)
+        mb = max(mb, __float_as_uint(fabsf(v[i])));
+      const float mx = __uint_as_float(__reduce_max_sync(0xffffffffu, mb));
       const float qs = mx == 0.0f ? 1.0f : __fmul_rn(mx, a.inv127);
       float isum = 0.0f;
 #pragma unroll
@@ -448,13 +450,13 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
                    __fsub_rn(__fmul_rn(s[3], ks1), __fmul_rn(qz1, kz1))};
     if (tok0 + g >= len) lg[0] = lg[1] = MASK_VALUE;
     if (tok0 + g + 8 >= len) lg[2] = lg[3] = MASK_VALUE;
-    float mx0 = fmaxf(lg[0], lg[2]), mx1 = fmaxf(lg[1], lg[3]);
+    float mx0 = max_nan(lg[0], lg[2]), mx1 = max_nan(lg[1], lg[3]);
 #pragma unroll
     for (int o = 4; o < 32; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      mx0 = max_nan(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = max_nan(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
     }
-    const float mn0 = fmaxf(m_[0], mx0), mn1 = fmaxf(m_[1], mx1);
+    const float mn0 = max_nan(m_[0], mx0), mn1 = max_nan(m_[1], mx1);
     const float al0 = expf(m_[0] - mn0), al1 = expf(m_[1] - mn1);
     const float p0 = expf(lg[0] - mn0), p1 = expf(lg[1] - mn1);
     const float p2 = expf(lg[2] - mn0), p3 = expf(lg[3] - mn1);
@@ -502,7 +504,8 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
   __syncthreads();                                  // the ring is idle
 
   // the warps' states into shared memory (acc in the idle ring), then the
-  // block's: the warps merged in order, an empty one weighing 0
+  // block's: the warps merged in order, an empty one (l = 0) weighing 0; a
+  // NaN state (l NaN) is merged, so the row's m, l and output stay NaN
   float* wacc = reinterpret_cast<float*>(ring);     // NW x MAXG x MAXD
   if (g == 0) {
     wm[w][2 * t] = m_[0]; wm[w][2 * t + 1] = m_[1];
@@ -521,11 +524,11 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
     float mx = -INFINITY;
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][row] > 0.0f) mx = fmaxf(mx, wm[v][row]);
+      if (wl[v][row] != 0.0f) mx = max_nan(mx, wm[v][row]);
     float sa = 0.0f;
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][row] > 0.0f)
+      if (wl[v][row] != 0.0f)
         sa = __fadd_rn(sa, __fmul_rn(expf(wm[v][row] - mx),
                                      wacc[(v * MAXG + row) * MAXD + d]));
     bacc[row][d] = sa;
@@ -534,10 +537,10 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
     float mx = -INFINITY, l = 0.0f;
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][tid] > 0.0f) mx = fmaxf(mx, wm[v][tid]);
+      if (wl[v][tid] != 0.0f) mx = max_nan(mx, wm[v][tid]);
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][tid] > 0.0f)
+      if (wl[v][tid] != 0.0f)
         l = __fadd_rn(l, __fmul_rn(expf(wm[v][tid] - mx), wl[v][tid]));
     bm[tid] = mx;
     bl[tid] = l;
@@ -550,12 +553,12 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
     const int row = e / D, d = e % D;
     float mx = -INFINITY;
     for (int r = 0; r < CL; ++r)
-      if (*cluster.map_shared_rank(&bl[row], r) > 0.0f)
-        mx = fmaxf(mx, *cluster.map_shared_rank(&bm[row], r));
+      if (*cluster.map_shared_rank(&bl[row], r) != 0.0f)
+        mx = max_nan(mx, *cluster.map_shared_rank(&bm[row], r));
     float sa = 0.0f, l = 0.0f;
     for (int r = 0; r < CL; ++r) {
       const float lr = *cluster.map_shared_rank(&bl[row], r);
-      if (lr > 0.0f) {
+      if (lr != 0.0f) {
         const float wt = expf(*cluster.map_shared_rank(&bm[row], r) - mx);
         sa = __fadd_rn(sa, __fmul_rn(wt, *cluster.map_shared_rank(&bacc[row][d], r)));
         l = __fadd_rn(l, __fmul_rn(wt, lr));
@@ -571,7 +574,7 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
     } else {
       // _self_fold_finalize: one more step over the new token
       const float lgs = lgs_s[row];
-      const float mf = fmaxf(mx, lgs);
+      const float mf = max_nan(mx, lgs);
       const float alpha = expf(mx - mf), p = expf(lgs - mf);
       const float lf = __fadd_rn(__fmul_rn(l, alpha), p);
       const float v = __fadd_rn(__fmul_rn(sa, alpha),
@@ -580,20 +583,12 @@ __device__ __forceinline__ void attend(const Args& a, const Addr& at, int b,
     }
   }
 
-  // append the new token's column in place: every block of the cluster has
-  // read its last byte of this row before the barrier above
-  size_t wc, wp;
-  if (FORM == kSelfAppend && rank == 0 && at.append(a.lengths[b], &wc, &wp)) {
-    const size_t nrow = (size_t)b * a.Hkv + h;
-    for (int d2 = tid; d2 < D2; d2 += THREADS) {
-      a.kq[wc + (size_t)d2 * stride] = a.nkq[nrow * D2 + d2];
-      a.vq[wc + (size_t)d2 * stride] = a.nvq[nrow * D2 + d2];
-    }
-    if (tid < 2) {
-      a.kp[wp + (size_t)tid * stride] = a.nkp[nrow * 2 + tid];
-      a.vp[wp + (size_t)tid * stride] = a.nvp[nrow * 2 + tid];
-    }
-  }
+  // append the new token's column in place (int4_append.cuh; warps 0 and
+  // 1 of rank 0 write k and v): every block of the cluster has read its
+  // last byte of this row before the barrier above
+  if (FORM == kSelfAppend && rank == 0 && w < 2)
+    int4_append::write_half(a.c, at, a.lengths[b], (size_t)b * a.Hkv + h,
+                            D2, w);
   cluster.sync();                    // no block leaves while read from
 }
 

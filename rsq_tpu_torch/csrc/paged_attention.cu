@@ -35,10 +35,12 @@
 // Design: int4_attention.cuh, a cluster of blocks per (b, kv head) row
 //   splitting it over the sequence, 64-token tiles copied in runs of 16
 //   tokens (4, or 1, where the page size does not align them), each run
-//   found through the table.  The append runs one thread per written
-//   element.  Rows of length 0 (idle engine slots) all point at the
-//   engine's null page and write its column 0 concurrently: a benign race,
-//   since no row ever reads that page's content for a live token.
+//   found through the table.  The append is int4_append.cuh's column
+//   writer, a warp per (b, h, k or v), on the address this file's functor
+//   gives (the page slot clamped to the table).  Rows of length 0 (idle
+//   engine slots) all point at the engine's null page and write its column
+//   0 concurrently: a benign race, since no row ever reads that page's
+//   content for a live token.
 
 #include "int4_attention.cuh"
 
@@ -78,37 +80,17 @@ paged_attn(int4_attention::Args a, const int32_t* __restrict__ ptab,
   int4_attention::attend<FORM>(a, at, b, h);
 }
 
-constexpr int APPEND_THREADS = 256;
-
-// Thread i writes one element: k then v; per (b, h) the D/2 code bytes,
-// then the two parameters.
-__global__ void __launch_bounds__(APPEND_THREADS)
-paged_append(uint8_t* __restrict__ kq, float* __restrict__ kp,
-             uint8_t* __restrict__ vq, float* __restrict__ vp,
-             const int32_t* __restrict__ ptab, const int32_t* __restrict__ pos,
-             const uint8_t* __restrict__ nkq, const float* __restrict__ nkp,
-             const uint8_t* __restrict__ nvq, const float* __restrict__ nvp,
-             int B, int layer, int P, int H, int D2, int page, int NP) {
-  const int per_head = D2 + 2;
-  const int per_kv = B * H * per_head;
-  int i = blockIdx.x * APPEND_THREADS + threadIdx.x;
-  if (i >= 2 * per_kv) return;
-  const bool is_v = i >= per_kv;
-  i -= is_v ? per_kv : 0;
-  const int bh = i / per_head, x = i % per_head;
-  const int b = bh / H, h = bh % H;
-  const int p = pos[b];
-  const int pid = ptab[(size_t)b * NP + min(p / page, NP - 1)];
-  const size_t head = ((size_t)layer * P + pid) * H + h;
-  const int col = p % page;
-  if (x < D2) {
-    (is_v ? vq : kq)[(head * D2 + x) * page + col] =
-        (is_v ? nvq : nkq)[(size_t)bh * D2 + x];
-  } else {
-    const int j = x - D2;
-    (is_v ? vp : kp)[(head * 2 + j) * page + col] =
-        (is_v ? nvp : nkp)[(size_t)bh * 2 + j];
-  }
+// grid (2 * H, B) of one warp: block (2h + half, b) writes half `half` (k,
+// v) of row (b, h)'s new column, page ptab[b, min(pos[b] / page, NP - 1)],
+// lane pos[b] % page, of layer `layer`
+__global__ void __launch_bounds__(32)
+paged_append(int4_append::Column a, const int32_t* __restrict__ ptab,
+             const int32_t* __restrict__ pos, int layer, int P, int H, int D2,
+             int page, int NP) {
+  const int b = blockIdx.y, h = blockIdx.x >> 1;
+  const PagedAddr at{ptab + (size_t)b * NP, layer, P, H, h, D2, page, NP};
+  int4_append::write_half(a, at, pos[b], (size_t)b * H + h, D2,
+                          blockIdx.x & 1);
 }
 
 }  // namespace
@@ -163,14 +145,9 @@ extern "C" int paged_append_pool_launch(
     void* kq, void* kp, void* vq, void* vp, const void* ptab, const void* pos,
     const void* nkq, const void* nkp, const void* nvq, const void* nvp, int B,
     int layer, int P, int H, int D2, int page, int NP, void* stream) {
-  const int n = 2 * B * H * (D2 + 2);
-  paged_append<<<(n + APPEND_THREADS - 1) / APPEND_THREADS, APPEND_THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(kq), static_cast<float*>(kp),
-      static_cast<uint8_t*>(vq), static_cast<float*>(vp),
+  paged_append<<<dim3(2 * H, B), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      int4_append::column(kq, kp, vq, vp, nkq, nkp, nvq, nvp),
       static_cast<const int32_t*>(ptab), static_cast<const int32_t*>(pos),
-      static_cast<const uint8_t*>(nkq), static_cast<const float*>(nkp),
-      static_cast<const uint8_t*>(nvq), static_cast<const float*>(nvp), B,
       layer, P, H, D2, page, NP);
   return (int)cudaGetLastError();
 }

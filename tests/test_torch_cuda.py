@@ -681,17 +681,22 @@ def test_paged_read_only_matches_plain(dev, page, int8_qk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("page", [16, 512])
-def test_paged_append_matches_plain(dev, page):
+@pytest.mark.parametrize("D", [36, 64, 128, 256])
+@pytest.mark.parametrize("page", [8, 16, 24, 512])
+def test_paged_append_matches_plain(dev, page, D):
     """Row 21: pools bit-equal to the plain version's, with two live rows
     appending into one shared page at different lanes, a row on its
-    second page, and an idle row on the null page 0."""
-    rng = np.random.default_rng(page)
-    L, P, H, D, B = 2, 8, 8, 128, 4
+    second page, an idle row on the null page 0, and a position past the
+    table (the clamped slot: its last page), over 5 x 3 (b, h) rows;
+    D/2 = 18 is no multiple of 4.  One launch a call."""
+    rng = np.random.default_rng(page + D)
+    L, P, H, B = 2, 8, 3, 5
     kq, kp = _paged_pool(rng, L, P, H, D, page)
     vq, vp = _paged_pool(rng, L, P, H, D, page)
-    ptab = torch.tensor([[3, 5], [5, 6], [1, 2], [0, 0]], dtype=torch.int32)
-    pos = torch.tensor([page + 2, 7, page - 1, 0], dtype=torch.int32)
+    ptab = torch.tensor([[3, 5], [5, 6], [1, 2], [0, 0], [4, 7]],
+                        dtype=torch.int32)
+    pos = torch.tensor([page + 2, 7 % page, page - 1, 0, 2 * page + 3],
+                       dtype=torch.int32)
     nkq, nkp = TKV.asym_quant_pack_head(torch.from_numpy(
         rng.standard_normal((B, H, D)).astype(np.float32)))
     nvq, nvp = TKV.asym_quant_pack_head(torch.from_numpy(
@@ -699,13 +704,15 @@ def test_paged_append_matches_plain(dev, page):
     new = (nkq, nkp, nvq, nvp)
     cpu = [t.clone() for t in (kq, kp, vq, vp)]
     gpu = [t.to(dev) for t in (kq, kp, vq, vp)]
+    args = (1, ptab.to(dev), pos.to(dev), *(t.to(dev) for t in new))
     TPKV.paged_append_pool(*cpu, 1, ptab, pos, *new)
-    TPKV.paged_append_pool(*gpu, 1, ptab.to(dev), pos.to(dev),
-                           *(t.to(dev) for t in new))
+    TPKV.paged_append_pool(*gpu, *args)
     for g, c in zip(gpu, cpu):
         assert torch.equal(g.cpu(), c)
     assert torch.equal(cpu[0][1, 5, :, :, 2], nkq[0])
-    assert torch.equal(cpu[0][1, 5, :, :, 7], nkq[1])
+    assert torch.equal(cpu[0][1, 5, :, :, 7 % page], nkq[1])
+    assert torch.equal(cpu[0][1, 7, :, :, 3], nkq[4])
+    assert _launches(lambda: TPKV.paged_append_pool(*gpu, *args)) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -753,20 +760,25 @@ def test_decode_attention_self_matches_plain(dev, int8_qk):
 
 
 @pytest.mark.cuda
-def test_kv_append_matches_plain(dev):
-    """Row 7: positions 0, 127, 128 and S - 1; whole caches bit-equal."""
-    rng = np.random.default_rng(8)
-    L, B, H, D, S = 2, 4, 8, 128, 384
+@pytest.mark.parametrize("D", [36, 64, 128, 256])
+def test_kv_append_matches_plain(dev, D):
+    """Row 7: positions 0, 127, 128, S - 1 and 200 over 5 x 3 (b, h) rows;
+    whole caches bit-equal; D/2 = 18 is no multiple of 4.  One launch a
+    call."""
+    rng = np.random.default_rng(8 + D)
+    L, B, H, S = 2, 5, 3, 384
     cache = _int4_cache(rng, L, B, H, D, S)
-    pos = torch.tensor([0, 127, 128, S - 1], dtype=torch.int32)
+    pos = torch.tensor([0, 127, 128, S - 1, 200], dtype=torch.int32)
     _, new = _new_token(rng, B, H, D)
     new = [t[..., None] for t in new]
     gpu = [t.to(dev) for t in cache]
+    args = (1, pos.to(dev), *(t.to(dev) for t in new))
     TKV.kv_append_stacked(*cache, 1, pos, *new)
-    TKV.kv_append_stacked(*gpu, 1, pos.to(dev), *(t.to(dev) for t in new))
+    TKV.kv_append_stacked(*gpu, *args)
     for g, c in zip(gpu, cache):
         assert torch.equal(g.cpu(), c)
     assert torch.equal(cache[0][1, 3, :, :, S - 1], new[0][3, :, :, 0])
+    assert _launches(lambda: TKV.kv_append_stacked(*gpu, *args)) == 1
 
 
 @pytest.mark.cuda
@@ -923,6 +935,69 @@ def test_self_append_kernel_equals_fold_then_append(dev, paged):
     assert torch.equal(out_f, out_s)
     for a, b in zip(fused, pair):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk", [True, False])
+@pytest.mark.parametrize("row", [2, 3, 4, 17, 18, 19])
+def test_nan_query_head(dev, row, int8_qk):
+    """q[0, 5, 17] = NaN (batch row 0, kv head 1, query row 1): that query
+    head's output is NaN and no other, as in the plain version, whose
+    int8_qk scale (amax) and running max (maximum) keep the NaN; the
+    other heads within 2 bf16 roundings, the other query rows of the same
+    (b, kv head) row included.  Row 2 also m and l: NaN at (0, 1, 1) alone,
+    the rest within 1e-5 relative + 1e-5.  Appending rows write their
+    column as the plain version does."""
+    rng = np.random.default_rng(70 + row + 100 * int8_qk)
+    L, B, Hkv, G, D = 2, 3, 4, 4, 128
+    q = torch.from_numpy((rng.standard_normal((B, Hkv * G, D)) * 2)
+                         .astype(np.float32)).to(torch.bfloat16)
+    q[0, 5, 17] = float("nan")
+    selfs, new = _new_token(rng, B, Hkv, D)
+    if row in (2, 3, 4):
+        cache = _int4_cache(rng, L, B, Hkv, D, 320)
+        lengths = torch.tensor([300, 1, 129], dtype=torch.int32)
+        table = ()
+    else:
+        page = 128 if row == 19 else 16
+        NP = -(-320 // page)
+        P = B * NP + 1
+        cache = [*_paged_pool(rng, L, P, Hkv, D, page),
+                 *_paged_pool(rng, L, P, Hkv, D, page)]
+        table = (torch.from_numpy(rng.permutation(P)[:B * NP]
+                                  .reshape(B, NP).astype(np.int32)),)
+        lengths = torch.tensor([300, 1, 2 * page + 3], dtype=torch.int32)
+    fn = {2: TKV.int4_decode_attention_stacked,
+          3: TKV.int4_decode_attention_stacked_self,
+          4: TKV.int4_decode_attention_self_append,
+          17: TPKV.int4_paged_decode_attention_stacked,
+          18: TPKV.int4_paged_decode_attention_stacked_self,
+          19: TPKV.int4_paged_decode_attention_self_append}[row]
+    rest = (*table, lengths) + (() if row in (2, 17) else tuple(selfs)) \
+        + (tuple(new) if row in (4, 19) else ())
+    cpu = [t.clone() for t in cache]
+    gpu = [t.to(dev) for t in cache]
+    want = fn(q, *cpu, 1, *rest, int8_qk=int8_qk)
+    got = fn(q.to(dev), *gpu, 1, *(t.to(dev) for t in rest), int8_qk=int8_qk)
+    want, got = ([w] if row != 2 else list(w) for w in (want, got))
+    head = np.zeros((B, Hkv * G, D), bool)
+    head[0, 5] = True
+    g, w = f32(got[0]), f32(want[0])
+    np.testing.assert_array_equal(np.isnan(w), head)
+    np.testing.assert_array_equal(np.isnan(g), head)
+    np.testing.assert_allclose(g[~head], w[~head], rtol=4 * BF16_EPS,
+                               atol=2e-3)
+    if row == 2:
+        state = np.zeros((B, Hkv, G), bool)
+        state[0, 1, 1] = True
+        for a, b in zip(got[1:], want[1:]):
+            a, b = f32(a), f32(b)
+            np.testing.assert_array_equal(np.isnan(b), state)
+            np.testing.assert_array_equal(np.isnan(a), state)
+            np.testing.assert_allclose(a[~state], b[~state], rtol=1e-5,
+                                       atol=1e-5)
+    for a, c in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), c)
 
 
 # ---------------------------------------------------------------------------

@@ -224,3 +224,53 @@ def test_paged_self_append_equals_fold_then_append(int8_qk):
     np.testing.assert_allclose(f32(out_f), f32(out_s), rtol=1e-5, atol=1e-5)
     for a, b in zip(fused, pair):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# A NaN in one query head under int8_qk (rows 3 and 18)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_qk_nan_query_head(paged):
+    """q[0, 1, 5] = NaN with int8_qk: the reference's max |q| is NaN, so
+    that head's scale, logits and output are NaN; the plain version gives
+    the same NaN pattern (that head alone) and the other heads within the
+    file's tolerance (rows 3 and 18 at page 16)."""
+    rng = np.random.default_rng(61 + paged)
+    L, B, Hkv, G, D = 2, 2, 2, 2, 128
+    q = (rng.standard_normal((B, Hkv * G, D)) * 2).astype(np.float32)
+    q[0, 1, 5] = np.nan
+    (k_self, v_self), _ = _new_token(rng, B, Hkv, D)
+    lens = np.array([100, 37], np.int32)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    selfs = (k_self, v_self)
+    if paged:
+        page, NP = 16, 8
+        P = B * NP + 1
+        cache = _pool(rng, L, P, Hkv, D, page)
+        ptab = rng.permutation(P)[:B * NP].reshape(B, NP).astype(np.int32)
+        want = JPKV.int4_paged_decode_attention_stacked_self(
+            jq, *map(jnp.asarray, cache), 1, jnp.asarray(ptab),
+            jnp.asarray(lens), *(jnp.asarray(a, jnp.float32) for a in selfs),
+            int8_qk=True)
+        got = TPKV.int4_paged_decode_attention_stacked_self(
+            tq, *map(torch.from_numpy, cache), 1, torch.from_numpy(ptab),
+            torch.from_numpy(lens), *map(torch.from_numpy, selfs),
+            int8_qk=True)
+    else:
+        cache = _int4_cache(rng, L, B, Hkv, D, 128)
+        want = JKV.int4_decode_attention_stacked_self(
+            jq, *map(jnp.asarray, cache), 1, jnp.asarray(lens),
+            *(jnp.asarray(a, jnp.float32) for a in selfs), chunk=128,
+            int8_qk=True)
+        got = TKV.int4_decode_attention_stacked_self(
+            tq, *map(torch.from_numpy, cache), 1, torch.from_numpy(lens),
+            *map(torch.from_numpy, selfs), int8_qk=True)
+    g, w = f32(got), f32(want)
+    head = np.zeros(g.shape, bool)
+    head[0, 1] = True
+    np.testing.assert_array_equal(np.isnan(w), head)
+    np.testing.assert_array_equal(np.isnan(g), head)
+    np.testing.assert_allclose(g[~head], w[~head], rtol=4 * BF16_EPS,
+                               atol=2e-3)

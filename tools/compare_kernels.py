@@ -8,9 +8,9 @@ one call on one card, in turns (parent, change, change, parent).
     python3 tools/compare_kernels.py ROOT [CHECK ...]
 
 CHECK names a chip_smoke.py function (default: the weight-only and INT4
-attention checks) or `same_operands`: rows 1 and 6 timed on operands that
-every version of the package takes, beside the launch floor where ROOT
-has it.
+attention checks) or `same_operands`: rows 1, 6, 7 and 21 timed on
+operands that every version of the package takes, beside the launch floor
+where ROOT has it.
 """
 
 import ctypes
@@ -29,11 +29,15 @@ CHECKS = ("check_w4", "check_w4_affine", "check_w4_head", "check_w4_paired",
 
 
 def same_operands(cs, dev, g, cfg):
-    """decode_prep on contiguous (B, H, D) q, k, v and the bf16 append on
-    contiguous (B, H, 1, D) nk, nv, at the Llama-3-8B decode shapes, B = 8
-    (S = 1024): device ms per call, five readings of 200 calls each."""
+    """decode_prep on contiguous (B, H, D) q, k, v, the bf16 append on
+    contiguous (B, H, 1, D) nk, nv, and the INT4 appends as the smoke
+    checks them (the contiguous one at positions CONTIG_LENGTHS, S = 1024;
+    the pool's at page 16, positions PAGED_LENGTHS), at the Llama-3-8B
+    decode shapes, B = 8 (S = 1024): device ms per call, five readings of
+    200 calls each."""
     from rsq_tpu_torch.kernels import cuda_build
     from rsq_tpu_torch.kernels import kv_cache as KV
+    from rsq_tpu_torch.kernels import paged_kv as PKV
     from rsq_tpu_torch.models import llama as LM
     B, Hq, Hkv, D = 8, cfg.num_attention_heads, cfg.num_key_value_heads, \
         cfg.head_dim_
@@ -47,9 +51,20 @@ def same_operands(cs, dev, g, cfg):
     kc, vc = bf16(2, B, Hkv, 1024, D), bf16(2, B, Hkv, 1024, D)
     pos = torch.randint(0, 1024, (B,), generator=g, device=dev).int()
     nk, nv = bf16(B, Hkv, 1, D), bf16(B, Hkv, 1, D)
+    new = (*KV.asym_quant_pack_head(bf16(B, Hkv, D)),
+           *KV.asym_quant_pack_head(bf16(B, Hkv, D)))
+    lane = [t[..., None] for t in new]          # row 7 takes (B, H, ., 1)
+    cache = cs._int4_cache(dev, g, 2, B, Hkv, D, 1024)
+    cpos = torch.tensor(cs.CONTIG_LENGTHS, dtype=torch.int32, device=dev)
+    pool, ptab = cs._paged_pool(dev, g, 2, Hkv, D, 16, cs.PAGED_LENGTHS)
+    ppos = torch.tensor(cs.PAGED_LENGTHS, dtype=torch.int32, device=dev)
     runs = {"decode_prep": lambda i=0: KV.decode_prep(q, k, v, cos, sin),
             "kv_append_stacked_bf16": lambda i=0: KV.kv_append_stacked_bf16(
-                kc, vc, 1, pos, nk, nv)}
+                kc, vc, 1, pos, nk, nv),
+            "kv_append_stacked": lambda i=0: KV.kv_append_stacked(
+                *cache, 1, cpos, *lane),
+            "paged_append_pool": lambda i=0: PKV.paged_append_pool(
+                *pool, 1, ptab, ppos, *new)}
     if "launch_floor" in cuda_build.SOURCES:
         fn = cuda_build.function("launch_floor", "empty_launch",
                                  [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
