@@ -20,14 +20,24 @@ Phases (any failure raises and exits nonzero; nothing is caught):
                 a NaN head under int8_qk.  Three kernels (rows 3, 7, 18
                 of PERF.md's table) lie on no serving path, as their TPU
                 kernels lie on none of the reference's: they must launch 0
-                times in phase 5.
+                times in phases 5 and 6.
   4. small   -- tiny models served on the GPU (kernels) and on the CPU
                 (plain versions) by the paged engine at pages 128 and 16,
                 the contiguous engine, the per-layer prefill/decode_step
                 and the per-layer paged oracles at page 16, in three
                 configurations (W4A4, W4A16 with an int4 lm_head, E8P): the
-                logits must agree.
-  5. serve   -- ten paths at full Llama-3-8B width and depth (32 layers),
+                logits must agree.  The RSQ pipeline (run_rsq.sh config)
+                on a tiny model on the card against the CPU, call by call;
+                then the CLI's quantize, eval and serve on the card.
+  5. quantize -- the RSQ pipeline at Llama-3-8B width on 2 of its 32
+                layers, 32 synthetic calibration samples of 2048 tokens:
+                seconds per stage, peak memory, quant_error, PPL; the
+                result served by PagedServingEngine (page 512), its prefill
+                logits held against the fake-quant forward: W4A16 corr >
+                0.98; W4A4 within A4_MARGIN of the 4-bit-activation
+                forward's agreement with itself on bf16-rounded weights,
+                a bound the W4A16 prefill must miss.
+  6. serve   -- ten paths at full Llama-3-8B width and depth (32 layers),
                 32 new tokens per request; each path's kernel launch counts
                 start at 0 just before it and must rise:
                 serve            PagedServingEngine, W4A4 INT4-KV, page 512
@@ -65,6 +75,7 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -681,6 +692,22 @@ def check_bf16_attention(dev, g, cfg):
         KV.bf16_decode_attention_stacked(q, k, v, L - 1, full),
         KV.bf16_decode_attention_plain(q, k, v, L - 1, full), full,
         "at lengths S - 1"))
+    # a query row with a NaN: NaN in its out, m and l alone, as in the
+    # plain version (the empty row's out is 0/0 in both)
+    qn, head = _nan_head(q)
+    got_n = KV.bf16_decode_attention_stacked(qn, k, v, L - 1, lengths)
+    want_n = KV.bf16_decode_attention_plain(qn, k, v, L - 1, lengths)
+    row = head[:, :, 0].reshape(B, Hkv, G)
+    empty = (lengths == 0)[:, None, None].expand(head.shape)
+    for i, (a, w, nan) in enumerate(zip(got_n, want_n, (head, row, row))):
+        ensure(torch.equal(torch.isnan(w), nan | empty if i == 0 else nan)
+               and torch.equal(torch.isnan(a), torch.isnan(w)),
+               f"bf16 attention output {i}: NaN pattern differs from the "
+               "query's NaN row")
+    err = max(err, _bf16_attn_err(
+        *[[torch.where(nan, 0.0, t.float()) for t, nan in zip(
+            res, (head, row, row))] for res in (got_n, want_n)],
+        lengths, "with a NaN query row"))
     del k, v
     kb, vb = _bf16_cache(dev, g, TIMING_LAYERS, B, Hkv, S, D)
     pos = torch.arange(S, device=dev)
@@ -710,7 +737,8 @@ def check_bf16_attention(dev, g, cfg):
             "check": "out within 4*2^-8 rel + 2e-3 where l > 0, m and l "
                      "within 1e-5 rel; length-0 row -inf, 0, 0/0; also at "
                      "lengths all S - 1; bit-equal on a cache poisoned at "
-                     "and past each length"}
+                     "and past each length; a query row with a NaN gives "
+                     "NaN in its out, m and l alone"}
 
 
 def check_bf16_append(dev, g, cfg):
@@ -1404,16 +1432,6 @@ def tiny_dense_model(cfg, seed=0):
     return params, quant
 
 
-def tree_to(tree, dev):
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_to(v, dev) for v in tree]
-    return tree.to(dev)
-
-
 def _compare_runs(gpu, cpu, uids, new_tokens, lmax, lrms):
     """Logits of each request's steps on the GPU and the CPU, up to and
     including the first step where the two pick different tokens (until
@@ -1468,6 +1486,7 @@ def small_check(dev):
     contiguous ServingEngine.  Until the first step where the two pick
     different tokens both saw the same tokens, so their logits must agree
     within the configuration's tolerance."""
+    from rsq_tpu_torch import tree_to
     from rsq_tpu_torch.models.config import ModelConfig
     from rsq_tpu_torch.serving import model as S
     from rsq_tpu_torch.serving import params as SP
@@ -1571,6 +1590,305 @@ def _greedy_paged_oracles(params, sc, prompt, d, page=16):
                                              sc)
         lengths = lengths + 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The RSQ pipeline: on the card against the CPU (phase 4), at Llama-3-8B
+# width (phase quantize)
+# ---------------------------------------------------------------------------
+
+def run_rsq_config(nsamples: int):
+    """The run_rsq.sh configuration (tests/test_pipeline.py): rotate,
+    attncon weighting with min 0.005 and max 1, GPTQ W4 sym with the MSE
+    clip search, add_until_fail."""
+    from rsq_tpu_torch.core.quant import WeightQuantConfig
+    from rsq_tpu_torch.quantize.gptq import GPTQConfig
+    from rsq_tpu_torch.quantize.pipeline import RSQConfig
+    from rsq_tpu_torch.quantize.weighting import WeightingConfig
+    return RSQConfig(w=WeightQuantConfig(bits=4, sym=True, mse=True),
+                     rotate=True, nsamples=nsamples,
+                     weighting=WeightingConfig(method="attncon",
+                                               min_value=0.005, max_value=1.0),
+                     gptq=GPTQConfig(add_until_fail=True))
+
+
+def one_step_off(got, want, step) -> int:
+    """Entries of got outside rtol 1e-4, atol 1e-5 of want (the bound of
+    tests/test_gptq.py); each must be exactly one quantization step (its
+    row's scale) off, a rounding tie decided the other way.  Returns their
+    count."""
+    off = ~torch.isclose(got, want, rtol=1e-4, atol=1e-5)
+    rows = torch.nonzero(off)[:, 0]
+    d = (got - want).abs()[off]
+    ensure(bool(torch.isclose(d, step.reshape(-1)[rows], rtol=1e-4).all()),
+           "a quantized weight off by more than a rounding tie")
+    return int(off.sum())
+
+
+def quantize_vs_cpu(dev, cfg, params, calib, rsq):
+    """quantize_model on the CPU (plain versions), each GPTQ call recorded;
+    then on the card, each call held against the CPU's at the same place on
+    the same state: W within 1e-6 and H within 1e-5 of their largest
+    entries, the card's own weights within rtol 1e-4, atol 1e-5 at >= 99.9%
+    of all entries, every other entry exactly one step off.  The CPU's
+    weights then go on, so a flipped tie does not move the next groups'
+    Hessians (the ROADMAP holds logits on identical state for the same
+    reason).  Then the same quantizer keys and bits, scales within 1e-5
+    relative.  Returns the counts."""
+    from rsq_tpu_torch.quantize import pipeline as P
+    ref = []
+
+    def record(fn):
+        def run(W, H, wq, cfg_, device):
+            Q, info = fn(W, H, wq, cfg_, device=device)
+            ref.append((W.clone(), H.clone(), Q, info["scale"]))
+            return Q, info
+        return run
+
+    with mock.patch.object(P, "gptq_quantize", record(P.gptq_quantize)):
+        _, want = P.quantize_model(params, cfg, rsq, calib, device="cpu")
+    calls = iter(ref)
+    n = {"calls": len(ref), "entries": 0, "one_step_off": 0,
+         "max_h_err_over_max": 0.0}
+
+    def forced(fn):
+        def run(W, H, wq, cfg_, device):
+            rW, rH, rQ, rs = next(calls)
+            scale = float(rW.abs().max())
+            ensure(float((W.cpu() - rW).abs().max()) <= 1e-6 * scale,
+                   "quantize: the card's W differs from the CPU's")
+            e = float((H.cpu() - rH).abs().max() / rH.abs().max())
+            ensure(e <= 1e-5, f"quantize: Hessian differs by {e}")
+            n["max_h_err_over_max"] = max(n["max_h_err_over_max"], e)
+            Q, info = fn(W, H, wq, cfg_, device=device)
+            ensure(Q.device.type == "cuda", "GPTQ did not run on the card")
+            n["one_step_off"] += one_step_off(Q.cpu(), rQ, rs)
+            n["entries"] += rQ.numel()
+            return rQ.to(Q.device), info
+        return run
+
+    with mock.patch.object(P, "gptq_quantize", forced(P.gptq_quantize)):
+        _, got = P.quantize_model(params, cfg, rsq, calib, device=dev)
+    ensure(next(calls, None) is None and got.keys() == want.keys()
+           and all(got[k]["bits"] == want[k]["bits"] for k in want))
+    for k in want:
+        ensure(bool(torch.isclose(got[k]["scale"], want[k]["scale"],
+                                  rtol=1e-5, atol=0).all()), f"scale of {k}")
+    n["share_one_step_off"] = n["one_step_off"] / n["entries"]
+    ensure(n["share_one_step_off"] <= 1e-3, n)
+    return n
+
+
+def small_quantize_check(dev):
+    """The tiny model quantized on the card and on the CPU, held call by
+    call (quantize_vs_cpu); then the CLI on the card in this process:
+    quantize (--eval) saves a checkpoint, eval and serve load it."""
+    import tempfile
+
+    from rsq_tpu_torch import cli
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.models.llama import init_params
+    from rsq_tpu_torch.quantize.data import get_loaders
+    cfg = ModelConfig.tiny(num_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), scale=0.05)
+    calib = get_loaders("synthetic", nsamples=8, seqlen=64,
+                        vocab_size=cfg.vocab_size)
+    out = {"rsq_tiny_vs_cpu": quantize_vs_cpu(dev, cfg, params, calib,
+                                              run_rsq_config(8))}
+    with tempfile.TemporaryDirectory() as ck:
+        q = cli.main(["quantize", "--model", "tiny", "--cal-dataset",
+                      "synthetic", "--nsamples", "8", "--train-seqlen", "64",
+                      "--w-bits", "4", "--w-clip", "--rotate", "--weighting",
+                      "attncon", "--min-value", "0.005", "--max-value", "1",
+                      "--add-until-fail", "--eval", "--eval-dataset",
+                      "synthetic", "--val-seqlen", "512", "--bsz", "64",
+                      "--save", ck])
+        e = cli.main(["eval", "--load", ck, "--eval-dataset", "synthetic",
+                      "--val-seqlen", "512", "--bsz", "64"])
+        sv = cli.main(["serve", "--load", ck, "--requests", "4",
+                       "--num-slots", "2", "--page-size", "128", "--max-seq",
+                       "512", "--prompt-len", "100", "--max-new-tokens", "8",
+                       "--attn-int8-qk"])
+    ensure(q["device"] == e["device"] == sv["device"] == "cuda")
+    ensure(math.isfinite(q["ppl"]) and math.isfinite(e["ppl"])
+           and abs(q["ppl"] - e["ppl"]) <= 1e-5 * q["ppl"],
+           f"cli PPL {q['ppl']} / {e['ppl']}")
+    ensure(sv["requests"] == 4 and sv["new_tokens"] == 32, sv)
+    out["cli"] = {"quantize_ppl": q["ppl"], "eval_ppl": e["ppl"],
+                  "serve": sv}
+    return out
+
+
+QUANT_LAYERS, QUANT_SAMPLES, QUANT_SEQLEN = 2, 32, 2048
+EVAL_SEQS, EVAL_BSZ = 4, 2
+# mean prefill-logit corr of the W4A4 path with the 4-bit-activation
+# forward, below that forward's with itself on bf16-rounded weights: -0.003
+# measured, and -0.083 for the weight-only prefill (PERF.md)
+A4_MARGIN = 0.04
+
+
+def quantize_phase(dev, prompts):
+    """The RSQ pipeline at Llama-3-8B width on QUANT_LAYERS of its 32
+    layers: seeded random f32 params (made on the card, parked on the
+    host), QUANT_SAMPLES synthetic calibration samples of QUANT_SEQLEN
+    tokens, the run_rsq.sh configuration.  Seconds of the rotation and per
+    layer of the weighting, the Hessians and GPTQ (per projection), peak
+    memory, the largest quant_error; PPL of the base model (FP16) and of
+    the quantized one under W4A4KV4 on a synthetic eval stream.  Then the
+    result served by PagedServingEngine (page 512, INT4 KV, online
+    Hadamards, int8 QK, int8 lm_head; no prefix cache, so every prefill
+    attends to its own prompt's 16-bit K/V) on the serve prompts, the
+    prefill logits of each request's last prompt token held against the
+    fake-quant forward on the card under the policy that prefill runs:
+    - weight-only (a4=False) against the forward with 16-bit activations:
+      corr > 0.98 (the bound of tests/test_serving.py);
+    - the W4A4 main path (rows 1, 12, 16, 19 must launch) against the
+      forward with 4-bit activations: its mean corr over the prompts no
+      more than A4_MARGIN below that forward's mean corr with itself on its
+      weights rounded to bf16.  A chain of 4-bit quantizers turns a
+      one-rounding difference into new rounding noise within a few links,
+      so that self-agreement is what a second evaluation can reach.  The
+      weight-only prefill against the same forward must miss the bound:
+      the check tells W4A4 from W4A16.
+    """
+    import dataclasses
+
+    from rsq_tpu_torch import tree_to
+    from rsq_tpu_torch.eval.ppl import ppl_fullmodel
+    from rsq_tpu_torch.models import llama as M
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.models.policy import FP16, QuantPolicy, w4a4kv4
+    from rsq_tpu_torch.quantize import pipeline as P
+    from rsq_tpu_torch.quantize.data import get_loaders
+    from rsq_tpu_torch.quantize.gptq import quant_error
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving.paged import PagedServingEngine
+    from rsq_tpu_torch.serving.params import to_serving_params
+
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), num_layers=QUANT_LAYERS)
+    t0 = time.perf_counter()
+    params = tree_to(M.init_params(cfg, torch.Generator(device=dev)
+                                   .manual_seed(0)), "cpu")
+    calib = get_loaders("synthetic", nsamples=QUANT_SAMPLES,
+                        seqlen=QUANT_SEQLEN, vocab_size=cfg.vocab_size)
+    setup_s = time.perf_counter() - t0
+    errs = {}
+
+    def measure(fn):
+        def run(W, H, wq, cfg_, device):
+            Q, info = fn(W, H, wq, cfg_, device=device)
+            errs[len(errs)] = quant_error(W.to(Q.device), Q, H)
+            return Q, info
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    with mock.patch.object(P, "gptq_quantize", measure(P.gptq_quantize)):
+        qparams, quantizers = P.quantize_model(
+            params, cfg, run_rsq_config(QUANT_SAMPLES), calib, device=dev,
+            stats=stats)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ensure(len(errs) == 7 * QUANT_LAYERS and all(
+        math.isfinite(e) and e >= 0 for e in errs.values()), errs)
+
+    t0 = time.perf_counter()
+    stream = get_loaders("synthetic", eval_mode=True,
+                         vocab_size=cfg.vocab_size)[: EVAL_SEQS * QUANT_SEQLEN]
+    ppl_base = ppl_fullmodel(params, cfg, FP16, stream, QUANT_SEQLEN,
+                             EVAL_BSZ, device=dev)
+    ppl_quant = ppl_fullmodel(qparams, cfg, w4a4kv4(), stream, QUANT_SEQLEN,
+                              EVAL_BSZ, device=dev)
+    ppl_s = time.perf_counter() - t0
+    ensure(math.isfinite(ppl_base) and ppl_quant < 1.5 * ppl_base,
+           f"PPL base {ppl_base}, quantized {ppl_quant}")
+    del params
+
+    sparams = S.quantize_lm_head(to_serving_params(qparams, quantizers, cfg,
+                                                   device=dev))
+
+    def engine(a4):
+        sc = S.ServingConfig(model=cfg, a4=a4, kv_int4=True, kv_hadamard=True,
+                             online_had=True, max_seq=1024, attn_int8_qk=True)
+        return PagedServingEngine(sparams, sc, num_slots=BATCH,
+                                  page_size=512, record_logits=True,
+                                  prefix_caching=False, device=dev)
+
+    # weight-only first (prefill alone, its launches not counted), then the
+    # W4A4 main path, driven as the serve phases are
+    eng = engine(a4=False)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=NEW_TOKENS)
+    eng._admit()
+    w4a16 = [r.logit_trace[0] for r in eng.slots]
+    del eng
+    rec, launches, done = drive(engine(a4=True), prompts, cfg, PAGED_KERNELS)
+    w4a4 = [r.logit_trace[0] for r in sorted(done, key=lambda r: r.uid)]
+    del sparams
+    rot16 = QuantPolicy(online_had_down=True, online_had_o=True,
+                        norms_fused=True)
+    a4 = dataclasses.replace(rot16, a=w4a4kv4().a)
+
+    def last_logits(params, pol):
+        with torch.no_grad():
+            return [M.forward(params, torch.as_tensor(p[None], device=dev),
+                              cfg, pol)[0, -1].float().cpu().numpy()
+                    for p in prompts]
+
+    def bf16_rounded(t):
+        if isinstance(t, dict):
+            return {k: bf16_rounded(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [bf16_rounded(v) for v in t]
+        return t if t is None or not t.is_floating_point() \
+            else t.bfloat16().float()
+
+    qdev = tree_to(qparams, dev)
+    f16, fa4 = last_logits(qdev, rot16), last_logits(qdev, a4)
+    fa4_bf16w = last_logits(bf16_rounded(qdev), a4)
+    del qdev
+    torch.cuda.empty_cache()
+
+    def c(xs, ys):
+        return [float(np.corrcoef(x, y)[0, 1]) for x, y in zip(xs, ys)]
+
+    corr = {"w4a16_vs_rot16": c(w4a16, f16), "w4a4_vs_a4": c(w4a4, fa4),
+            "a4_vs_a4_bf16w": c(fa4, fa4_bf16w),
+            "w4a16_vs_a4": c(w4a16, fa4)}
+    bound = float(np.mean(corr["a4_vs_a4_bf16w"])) - A4_MARGIN
+    log(json.dumps({"prefill_logit_corr": corr, "a4_corr_bound": bound}))
+    ensure(min(corr["w4a16_vs_rot16"]) > 0.98,
+           f"served (W4A16) vs fake-quant prefill logits: {corr}")
+    ensure(np.mean(corr["w4a4_vs_a4"]) > bound
+           > np.mean(corr["w4a16_vs_a4"]),
+           f"served vs 4-bit-activation prefill logits, bound {bound}: {corr}")
+    layers = stats["layers"]
+    return {"quantize": {
+        "model": f"llama3_8b widths, {QUANT_LAYERS} of 32 layers, seeded "
+                 "random f32 weights (torch.Generator seed 0)",
+        "config": "run_rsq.sh: rotate, attncon 0.005-1, GPTQ W4 sym MSE "
+                  "clip, add_until_fail",
+        "reduced": {"layers": f"{QUANT_LAYERS} of 32",
+                    "nsamples": f"{QUANT_SAMPLES} of the reference's 128",
+                    "eval": f"{EVAL_SEQS} sequences of {QUANT_SEQLEN} "
+                            "synthetic tokens"},
+        "calibration": f"synthetic, {QUANT_SAMPLES} x {QUANT_SEQLEN}",
+        "setup_s": setup_s, "quantize_s": quant_s,
+        "rotate_s": stats["rotate_s"],
+        "layer_s": [st["layer_s"] for st in layers],
+        "weighting_s": [st["weighting_s"] for st in layers],
+        "hessian_s": [st["hessian_s"] for st in layers],
+        "gptq_s": [st["gptq_s"] for st in layers],
+        "gptq_s_by_proj": [st["gptq_s_by_proj"] for st in layers],
+        "full_depth_s_reckoned": stats["rotate_s"] + 32 * float(
+            np.mean([st["layer_s"] for st in layers])),
+        "quantize_peak_mem_gib": peak,
+        "max_quant_error": max(errs.values()),
+        "ppl_base_fp16": ppl_base, "ppl_quant_w4a4kv4": ppl_quant,
+        "ppl_s": ppl_s, **rec}}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2137,18 +2455,16 @@ def main(argv):
             f"({time.perf_counter() - t0:.1f} s)")
 
     # phase 4: small end-to-end checks against the CPU
-    small = small_check(dev)
-    log(json.dumps(small))
-
-    # phase 5: serve -- each path's launch counts start at 0 just before it;
-    # one set of weights is live at a time (the W4 phases share the layers)
-    prompts = serve_prompts(cfg)
     t0 = time.perf_counter()
-    raw = random_serving_params(cfg, seed=0, device=dev)
-    params = S.quantize_lm_head(raw)
-    torch.cuda.synchronize()
-    log(f"serve: W4A4 params built in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    small = small_check(dev)
+    small["small"]["quantization"] = small_quantize_check(dev)
+    log(json.dumps(small))
+    log(f"small: {time.perf_counter() - t0:.1f} s")
+
+    # phases 5 and 6: quantize, then serve -- each path's launch counts
+    # start at 0 just before it; one set of weights is live at a time (the
+    # W4 phases share the layers)
+    prompts = serve_prompts(cfg)
     phases = []
 
     def run_phase(name, run):
@@ -2158,6 +2474,14 @@ def main(argv):
         log(json.dumps(phases[-1][0]))
         log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
+    run_phase("quantize", lambda: quantize_phase(dev, prompts))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    raw = random_serving_params(cfg, seed=0, device=dev)
+    params = S.quantize_lm_head(raw)
+    torch.cuda.synchronize()
+    log(f"serve: W4A4 params built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     run_phase("serve", lambda: serve_paged(dev, cfg, params, prompts, profile))
     run_phase("serve_contiguous", lambda: serve_contiguous(
         dev, cfg, params, prompts, profile))

@@ -2,8 +2,9 @@
 
 The JAX package `rsq_tpu` is the reference this package is tested against;
 nothing here imports it (or JAX).  Layout mirrors it: `core/`, `models/`,
-`kernels/` (wrappers + plain PyTorch versions), `serving/`, and `csrc/`
-(hand-written CUDA for sm_90a, built by nvcc on first use).
+`quantize/` (the RSQ pipeline), `eval/` (perplexity), `cli.py`, `kernels/`
+(wrappers + plain PyTorch versions), `serving/`, and `csrc/` (hand-written
+CUDA for sm_90a, built by nvcc on first use).
 
 Device rule: entry points default to device="cuda" and raise when CUDA is
 not available; only an explicit device="cpu" runs the plain PyTorch
@@ -26,3 +27,15 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def tree_to(tree, device):
+    """A param tree (dicts, lists, None leaves) with every tensor moved to
+    `device`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)

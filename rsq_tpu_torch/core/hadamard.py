@@ -332,3 +332,64 @@ def head_mixing_hadamard(x: torch.Tensor, head_dim: int,
     xs = x.reshape(*x.shape[:-1], heads, head_dim).transpose(-1, -2)
     xs = matmul_hadU(xs, dtype=dtype).transpose(-1, -2)
     return xs.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# The rotation's half: float64 weight-side transforms and the random
+# orthogonal generators.  The reference folds weights in numpy float64 on
+# the host; these run in torch float64 on whatever device the tensor is on
+# (the card, one tensor at a time, in rotate_model).  The generators stay
+# numpy, so a seed gives the reference's Q exactly.
+# ---------------------------------------------------------------------------
+
+def hadU_supported(n: int) -> bool:
+    """Whether a fast Hadamard exists for n (falcon-7b's 4544 and 18176,
+    odd part 71, have none: H_n needs n in {1, 2} or n % 4 == 0)."""
+    try:
+        get_hadK(n)
+        return True
+    except Exception:
+        return False
+
+
+def matmul_hadU_f64(x: torch.Tensor) -> torch.Tensor:
+    """x @ M^T / sqrt(n) along the last axis in float64 (the reference's
+    host matmul_hadU_np, whose butterfly fwht shares): the weight-side
+    exact Hadamard of the rotation, with a true division by sqrt(n)."""
+    n = x.shape[-1]
+    K, hadK = get_hadK(n)
+    xf = x.to(torch.float64)
+    if K == 1:
+        out = fwht(xf)
+    else:
+        xs = fwht(xf.reshape(*x.shape[:-1], K, n // K))
+        hk = torch.as_tensor(hadK, dtype=torch.float64, device=x.device)
+        out = torch.einsum("kl,...lj->...kj", hk, xs).reshape(x.shape)
+    return out / torch.tensor(math.sqrt(n), dtype=torch.float64,
+                              device=x.device)
+
+
+def random_hadamard_matrix(n: int, seed: int = 0) -> np.ndarray:
+    """Randomized orthonormal Hadamard H_n diag(+-1) / sqrt(n), float64."""
+    rng = np.random.default_rng(seed)
+    signs = rng.integers(0, 2, size=n).astype(np.float64) * 2 - 1
+    H = hadamard_matrix(n, dtype=np.float64)
+    return (H * signs[None, :]) / math.sqrt(n)
+
+
+def random_orthogonal_matrix(n: int, seed: int = 0) -> np.ndarray:
+    """QR-based random orthogonal matrix, float64, sign-fixed (Haar)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n))
+    q, r = np.linalg.qr(A)
+    q *= np.sign(np.diag(r))[None, :]
+    return q
+
+
+def get_orthogonal_matrix(n: int, mode: str = "hadamard",
+                          seed: int = 0) -> np.ndarray:
+    if mode == "hadamard":
+        return random_hadamard_matrix(n, seed)
+    if mode == "random":
+        return random_orthogonal_matrix(n, seed)
+    raise ValueError(f"unknown rotation mode {mode!r}")

@@ -44,6 +44,10 @@
 //     distributed shared memory.  An empty state weighs 0 (exp(-inf -
 //     -inf) would be NaN); a row whose states are all empty keeps m = -inf,
 //     l = 0 and out = 0/0.  One launch, no workspace.
+//   - NaN: the maxima are max.NaN (fmaxf drops a NaN) and a state is empty
+//     only at l = 0 (a NaN l is merged), so a query row with a NaN gives
+//     NaN in its out, m and l, and no other row changes, as in the plain
+//     version and the reference.
 //
 // 2. kv_append_bf16
 //   Replaces: rsq_tpu/kernels/kv_cache.py kv_append_stacked_bf16 (:937),
@@ -69,6 +73,7 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "max_nan.cuh"
 #include "smem_ring.cuh"
 
 namespace cg = cooperative_groups;
@@ -227,13 +232,13 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
         }
       if (tok0 + g >= len) s[0] = s[1] = MASK_VALUE;
       if (tok0 + g + 8 >= len) s[2] = s[3] = MASK_VALUE;
-      float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+      float mx0 = max_nan(s[0], s[2]), mx1 = max_nan(s[1], s[3]);
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        mx0 = max_nan(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = max_nan(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
       }
-      const float mn0 = fmaxf(m_[0], mx0), mn1 = fmaxf(m_[1], mx1);
+      const float mn0 = max_nan(m_[0], mx0), mn1 = max_nan(m_[1], mx1);
       const float al0 = expf(m_[0] - mn0), al1 = expf(m_[1] - mn1);
       const float p0 = expf(s[0] - mn0), p1 = expf(s[1] - mn1);
       const float p2 = expf(s[2] - mn0), p3 = expf(s[3] - mn1);
@@ -269,7 +274,8 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
   cp_wait<0>();
 
   // the warps' states into shared memory (acc in the idle ring), then the
-  // block's: the warps merged in order, an empty one weighing 0
+  // block's: the warps merged in order, an empty one (l = 0) weighing 0; a
+  // NaN state (l NaN) is merged, so the row's m, l and output stay NaN
   float* wacc = reinterpret_cast<float*>(ring);       // NW x MAXG x MAXD
   if (g == 0) {
     wm[w][2 * t] = m_[0]; wm[w][2 * t + 1] = m_[1];
@@ -288,11 +294,11 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
     float mx = -INFINITY;
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][row] > 0.0f) mx = fmaxf(mx, wm[v][row]);
+      if (wl[v][row] != 0.0f) mx = max_nan(mx, wm[v][row]);
     float a = 0.0f;
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][row] > 0.0f)
+      if (wl[v][row] != 0.0f)
         a = __fadd_rn(a, __fmul_rn(expf(wm[v][row] - mx),
                                    wacc[(v * MAXG + row) * MAXD + d]));
     bacc[row][d] = a;
@@ -301,10 +307,10 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
     float mx = -INFINITY, l = 0.0f;
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][tid] > 0.0f) mx = fmaxf(mx, wm[v][tid]);
+      if (wl[v][tid] != 0.0f) mx = max_nan(mx, wm[v][tid]);
 #pragma unroll
     for (int v = 0; v < NW; ++v)
-      if (wl[v][tid] > 0.0f)
+      if (wl[v][tid] != 0.0f)
         l = __fadd_rn(l, __fmul_rn(expf(wm[v][tid] - mx), wl[v][tid]));
     bm[tid] = mx;
     bl[tid] = l;
@@ -317,12 +323,12 @@ bf16_decode_attn(const __nv_bfloat16* __restrict__ q,
     const int row = e / D, d = e % D;
     float mx = -INFINITY;
     for (int r = 0; r < CL; ++r)
-      if (*cluster.map_shared_rank(&bl[row], r) > 0.0f)
-        mx = fmaxf(mx, *cluster.map_shared_rank(&bm[row], r));
+      if (*cluster.map_shared_rank(&bl[row], r) != 0.0f)
+        mx = max_nan(mx, *cluster.map_shared_rank(&bm[row], r));
     float a = 0.0f, l = 0.0f;
     for (int r = 0; r < CL; ++r) {
       const float lr = *cluster.map_shared_rank(&bl[row], r);
-      if (lr > 0.0f) {
+      if (lr != 0.0f) {
         const float wt = expf(*cluster.map_shared_rank(&bm[row], r) - mx);
         const float ar = *cluster.map_shared_rank(&bacc[row][d], r);
         a = __fadd_rn(a, __fmul_rn(wt, ar));

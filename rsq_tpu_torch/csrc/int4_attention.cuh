@@ -87,6 +87,7 @@
 #include <math.h>
 
 #include "int4_append.cuh"
+#include "max_nan.cuh"
 #include "smem_ring.cuh"
 
 namespace int4_attention {
@@ -229,14 +230,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// max that keeps a NaN, as torch.maximum and jnp.maximum do (fmaxf drops
-// one), so a NaN logit gives its query row m = NaN
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
 }
 
 // Row b, kv head h of form FORM, run by block blockIdx.x (the cluster rank)

@@ -1,0 +1,99 @@
+"""Quantized-checkpoint save and load (the port of
+rsq_tpu.quantize.checkpoint, its npz + manifest format).
+
+One directory with
+  manifest.json   the model config, quantizer bits, meta, norms_fused
+  arrays.npz      every array leaf: params and quantizer scales / zeros
+A checkpoint written by either package loads in the other, bit for bit.
+The reference's orbax pair (sharded, multi-host) is not ported (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from rsq_tpu_torch.models.config import ModelConfig, RopeScaling
+from rsq_tpu_torch.models.family import linear_names
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _flatten(params, quantizers, cfg: ModelConfig):
+    arrays = {"embed": _np(params["embed"]),
+              "lm_head": _np(params["lm_head"])}
+    if params.get("final_norm") is not None:
+        arrays["final_norm"] = _np(params["final_norm"])
+    for i, lp in enumerate(params["layers"]):
+        for norm in ("input_norm", "post_norm"):
+            if lp.get(norm) is not None:
+                arrays[f"layers.{i}.{norm}"] = _np(lp[norm])
+        for name in linear_names(cfg):
+            arrays[f"layers.{i}.{name}.w"] = _np(lp[name]["w"])
+            if lp[name].get("b") is not None:
+                arrays[f"layers.{i}.{name}.b"] = _np(lp[name]["b"])
+    for key, info in quantizers.items():
+        arrays[f"quant.{key}.scale"] = _np(info["scale"])
+        arrays[f"quant.{key}.zero"] = _np(info["zero"])
+    return arrays
+
+
+def save_quantized(path: str, params, quantizers, cfg: ModelConfig,
+                   meta: dict | None = None):
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "arrays.npz"),
+             **_flatten(params, quantizers, cfg))
+    manifest = {
+        "model_config": dataclasses.asdict(cfg),
+        "num_layers": cfg.num_layers,
+        "quantizer_bits": {k: int(v["bits"]) for k, v in quantizers.items()},
+        "meta": meta or {},
+        "norms_fused": params["layers"][0].get("input_norm") is None,
+    }
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
+def load_quantized(path: str, dtype=torch.float32):
+    """Returns (params, quantizers, cfg, manifest), the tensors on the host
+    (float arrays cast to `dtype`); move them where they are used."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    cd = dict(manifest["model_config"])
+    if cd.get("rope_scaling"):
+        cd["rope_scaling"] = RopeScaling(**cd["rope_scaling"])
+    cfg = ModelConfig(**cd)
+
+    def arr(key, required=True):
+        if key not in arrays:
+            if required:
+                raise KeyError(key)
+            return None
+        t = torch.from_numpy(arrays[key])
+        return t.to(dtype) if t.is_floating_point() else t
+
+    layers = []
+    for i in range(cfg.num_layers):
+        lp = {norm: arr(f"layers.{i}.{norm}", required=False)
+              for norm in ("input_norm", "post_norm")}
+        for name in linear_names(cfg):
+            lp[name] = {"w": arr(f"layers.{i}.{name}.w"),
+                        "b": arr(f"layers.{i}.{name}.b", required=False)}
+        layers.append(lp)
+    params = {"embed": arr("embed"),
+              "final_norm": arr("final_norm", required=False),
+              "lm_head": arr("lm_head"), "layers": layers}
+    quantizers = {key: {"scale": torch.from_numpy(arrays[f"quant.{key}.scale"]),
+                        "zero": torch.from_numpy(arrays[f"quant.{key}.zero"]),
+                        "bits": bits}
+                  for key, bits in manifest["quantizer_bits"].items()}
+    return params, quantizers, cfg, manifest

@@ -176,6 +176,37 @@ def test_bf16_decode_attention_plain_matches(G, D, S, lengths):
     assert np.isnan(f32(to)[~live]).all() and np.isnan(f32(jo)[~live]).all()
 
 
+def test_bf16_decode_attention_nan_query_row():
+    """q[0, 1, 5] = NaN (batch row 0, kv head 0, query row 1): the
+    reference's running maximum and sums keep the NaN, so that query row's
+    out (all D values), m and l are NaN and nothing else is; the plain
+    version gives the same pattern and the other rows within the
+    tolerances of test_bf16_decode_attention_plain_matches.  The oracle of
+    the CUDA kernel's test_bf16_attention_nan_query_row."""
+    rng = np.random.default_rng(55)
+    L, B, Hkv, G, D, S = 2, 2, 2, 2, 128, 256
+    lengths = np.array([200, 77], np.int32)
+    q = (rng.standard_normal((B, Hkv * G, D)) * 2).astype(np.float32)
+    q[0, 1, 5] = np.nan
+    k = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (both(a, "bfloat16") for a in (q, k, v))
+    want = JKV.bf16_decode_attention_stacked(qj, kj, vj, 1,
+                                             jnp.asarray(lengths), chunk=128)
+    got = TKV.bf16_decode_attention_stacked(qt, kt, vt, 1,
+                                            torch.from_numpy(lengths))
+    row = np.zeros((B, Hkv, G), bool)
+    row[0, 0, 1] = True
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = f32(g), f32(w)
+        mask = row.reshape(B, Hkv * G)[..., None].repeat(D, -1) if i == 0 \
+            else row
+        np.testing.assert_array_equal(np.isnan(w), mask)
+        np.testing.assert_array_equal(np.isnan(g), mask)
+        rtol, atol = (4 * BF16_EPS, 2e-3) if i == 0 else (1e-5, 0.0)
+        np.testing.assert_allclose(g[~mask], w[~mask], rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("S", [16, 64, 128, 528, 1024, 4096])
 def test_bf16_attention_split_covers_each_row(S):
     """The CUDA kernel's sequence split (mirrored by bf16_attention_chunks):

@@ -383,6 +383,41 @@ def test_bf16_attention_one_launch_same_bits(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", [4, 8])
+def test_bf16_attention_nan_query_row(dev, G):
+    """q[0, 5, 17] = NaN: that query row's out (all D values), m and l are
+    NaN and nothing else is, as in the plain version (whose running
+    maximum and sums keep the NaN; tests/test_torch_contiguous.py::
+    test_bf16_decode_attention_nan_query_row holds it against rsq_tpu);
+    the other rows within _bf16_attn_close's tolerances, the other query
+    rows of the same (b, kv head) row included.  Row 0 spans several
+    blocks of the cluster, row 1 one tile, row 2 is empty."""
+    rng = np.random.default_rng(43 + G)
+    Hkv, D, S = 2, 128, 1024
+    lengths = torch.tensor([1000, 40, 0], dtype=torch.int32)
+    q, k, v = _bf16_case(rng, len(lengths), Hkv, G, D, S)
+    q[0, 5, 17] = float("nan")
+    want = TKV.bf16_decode_attention_stacked(q, k, v, 1, lengths)
+    got = TKV.bf16_decode_attention_stacked(q.to(dev), k.to(dev), v.to(dev),
+                                            1, lengths.to(dev))
+    B = len(lengths)
+    row = np.zeros((B, Hkv, G), bool)
+    row[0, 5 // G, 5 % G] = True
+    empty = np.zeros((B, Hkv * G, D), bool)
+    empty[(lengths == 0).numpy()] = True            # out = 0/0 there
+    rows = [row.reshape(B, Hkv * G)[..., None].repeat(D, -1), row, row]
+    for i, (g, w, nan) in enumerate(zip(got, want, rows)):
+        np.testing.assert_array_equal(np.isnan(f32(w)),
+                                      nan | empty if i == 0 else nan)
+        np.testing.assert_array_equal(np.isnan(f32(g)), np.isnan(f32(w)))
+    clean = [torch.where(torch.from_numpy(nan), 0.0, t.float().cpu())
+             for t, nan in zip(got, rows)]
+    ref = [torch.where(torch.from_numpy(nan), 0.0, t.float())
+           for t, nan in zip(want, rows)]
+    _bf16_attn_close(clean, ref, lengths)
+
+
+@pytest.mark.cuda
 def test_bf16_append_matches_plain(dev):
     rng = np.random.default_rng(5)
     L, B, H, S, D = 2, 4, 8, 64, 128
@@ -1364,3 +1399,75 @@ def test_paged_self_append_on_shared_pages(dev, int8_qk):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
     np.testing.assert_allclose(f32(out_f), f32(want), rtol=4 * BF16_EPS,
                                atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The RSQ pipeline on the card against the CPU (no kernel of its own: the
+# products are torch.matmul and torch.linalg, as the reference's are XLA's)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("actorder", [False, True])
+def test_gptq_on_card_matches_cpu(dev, actorder):
+    """gptq_quantize on the same W and H (W4 sym, MSE clip, 256 x 1024, a
+    correlated H): scales within 1e-5 relative; weights within rtol 1e-4,
+    atol 1e-5 at >= 99.9% of entries, every other entry exactly one step
+    off (a rounding tie the card's sums decide the other way)."""
+    import chip_smoke as CS
+    from rsq_tpu_torch.core.quant import WeightQuantConfig
+    from rsq_tpu_torch.quantize import gptq as TG
+    rng = np.random.default_rng(90 + actorder)
+    W = torch.from_numpy((rng.standard_normal((256, 1024)) * 0.02)
+                         .astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((4096, 1024)).astype(np.float32))
+    X = X @ torch.from_numpy(rng.standard_normal((1024, 1024))
+                             .astype(np.float32) / 32)
+    H = (X.T @ X) * (2.0 / 4096)
+    wq = WeightQuantConfig(bits=4, sym=True, mse=True)
+    cfg = TG.GPTQConfig(actorder=actorder, add_until_fail=True)
+    want, winfo = TG.gptq_quantize(W, H, wq, cfg, device="cpu")
+    got, ginfo = TG.gptq_quantize(W, H, wq, cfg, device=dev)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(ginfo["scale"].cpu(), winfo["scale"],
+                               rtol=1e-5, atol=0)
+    assert CS.one_step_off(got.cpu(), want, winfo["scale"]) <= 1e-3 * W.numel()
+
+
+@pytest.mark.cuda
+def test_quantize_model_on_card_matches_cpu(dev):
+    """The tiny model (2 layers, hidden 64) under the run_rsq.sh config,
+    every GPTQ call held against the CPU's on the same state
+    (chip_smoke.quantize_vs_cpu: W, Hessian, weights, scales)."""
+    import chip_smoke as CS
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.models.llama import init_params
+    from rsq_tpu_torch.quantize.data import get_loaders
+    cfg = ModelConfig.tiny(num_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(1), scale=0.05)
+    calib = get_loaders("synthetic", nsamples=8, seqlen=64, seed=1,
+                        vocab_size=cfg.vocab_size)
+    n = CS.quantize_vs_cpu(dev, cfg, params, calib, CS.run_rsq_config(8))
+    assert n["calls"] == 14 and n["share_one_step_off"] <= 1e-3
+
+
+@pytest.mark.cuda
+def test_prepare_hinv_at_llama3_intermediate(dev):
+    """n = 14336 (Llama-3-8B's down projection), a rank-4096 H as 4096
+    calibration tokens give it: the damped chain returns a finite upper
+    factor U on the card with (H + damp I) U^T U e_j within 1e-2 of e_j."""
+    from rsq_tpu_torch.quantize.gptq import prepare_hinv
+    n = 14336
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((4096, n), generator=g, device=dev)
+    H = X.T @ X
+    del X
+    U, dead = prepare_hinv(H, 0.01, add_until_fail=True)
+    assert U.shape == (n, n) and U.device.type == "cuda"
+    assert bool(torch.isfinite(U).all()) and not bool(dead.any())
+    assert bool((torch.tril(U, -1) == 0).all()) and bool((U.diagonal() > 0).all())
+    cols = torch.tensor([0, 777, 9000, n - 1], device=dev)
+    e = torch.zeros((n, len(cols)), device=dev)
+    e[cols, torch.arange(len(cols), device=dev)] = 1.0
+    Hd = H + 0.01 * H.diagonal().mean() * torch.eye(n, device=dev)
+    r = Hd @ (U.T @ (U @ e)) - e
+    assert float(r.abs().max()) < 1e-2

@@ -71,11 +71,43 @@ def _needs_no_gpu():
                                    "to_serving_params",
                                    "random_serving_params", "engine",
                                    "init_cache", "random_dense_params",
-                                   "serving_engine"])
-def test_default_device_raises_without_cuda(entry):
+                                   "serving_engine", "quantize_model",
+                                   "gptq_quantize", "rtn_quantize",
+                                   "rotate_model", "ppl_fullmodel",
+                                   "ppl_streamed", "cli_quantize",
+                                   "cli_eval", "cli_serve"])
+def test_default_device_raises_without_cuda(entry, tmp_path):
     _needs_no_gpu()
+    from rsq_tpu_torch import cli
+    from rsq_tpu_torch.core.quant import WeightQuantConfig
+    from rsq_tpu_torch.eval import ppl
+    from rsq_tpu_torch.models.llama import init_params
+    from rsq_tpu_torch.models.policy import FP16
+    from rsq_tpu_torch.quantize import gptq, pipeline, rotation
+    from rsq_tpu_torch.quantize.checkpoint import save_quantized
     cfg = ModelConfig.tiny()
+    params = init_params(cfg)
+    save_quantized(str(tmp_path), params, {}, cfg)
+    stream = np.arange(64) % cfg.vocab_size
     calls = {
+        "quantize_model": lambda: pipeline.quantize_model(
+            params, cfg, pipeline.RSQConfig(nsamples=2),
+            np.zeros((2, 8), np.int64)),
+        "gptq_quantize": lambda: gptq.gptq_quantize(
+            torch.ones(4, 8), torch.eye(8), WeightQuantConfig()),
+        "rtn_quantize": lambda: gptq.rtn_quantize(torch.ones(4, 8),
+                                                  WeightQuantConfig()),
+        "rotate_model": lambda: rotation.rotate_model(params, cfg),
+        "ppl_fullmodel": lambda: ppl.ppl_fullmodel(params, cfg, FP16, stream,
+                                                   16),
+        "ppl_streamed": lambda: ppl.ppl_streamed(params, cfg, FP16, stream,
+                                                 16),
+        "cli_quantize": lambda: cli.main(["quantize", "--cal-dataset",
+                                          "synthetic", "--nsamples", "2",
+                                          "--train-seqlen", "8"]),
+        "cli_eval": lambda: cli.main(["eval", "--load", str(tmp_path),
+                                      "--eval-dataset", "synthetic"]),
+        "cli_serve": lambda: cli.main(["serve", "--load", str(tmp_path)]),
         "init_pool": lambda: TPKV.init_pool(2, 3, 2, 16, 128),
         "from_numpy_params": lambda: TP.from_numpy_params(
             {"w": np.zeros((2, 2), np.float32)}),

@@ -8,15 +8,19 @@ one call on one card, in turns (parent, change, change, parent).
     python3 tools/compare_kernels.py ROOT [CHECK ...]
 
 CHECK names a chip_smoke.py function (default: the weight-only and INT4
-attention checks) or `same_operands`: rows 1, 6, 7 and 21 timed on
+attention checks), `same_operands`: rows 1, 5, 6, 7 and 21 timed on
 operands that every version of the package takes, beside the launch floor
-where ROOT has it.
+where ROOT has it, or a phase run as the smoke runs it: `serve_bf16` (the
+bf16 baseline (B), with the profile of one decode step: its wall, queue
+and device-busy ms) or `quantize_phase` (ROOT must hold the quantization
+pipeline), in the order given.
 """
 
 import ctypes
 import importlib.util
 import json
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -26,10 +30,13 @@ CHECKS = ("check_w4", "check_w4_affine", "check_w4_head", "check_w4_paired",
           "check_w4_affine_unstacked", "check_paged_attention",
           "check_contiguous_attention", "check_decode_attention",
           "check_paged_read_only")
+PHASES = ("serve_bf16", "quantize_phase")
 
 
 def same_operands(cs, dev, g, cfg):
-    """decode_prep on contiguous (B, H, D) q, k, v, the bf16 append on
+    """decode_prep on contiguous (B, H, D) q, k, v, the bf16 decode
+    attention as the smoke times it (lengths CONTIG_LENGTHS, S = 1024,
+    cycling over TIMING_LAYERS layers), the bf16 append on
     contiguous (B, H, 1, D) nk, nv, and the INT4 appends as the smoke
     checks them (the contiguous one at positions CONTIG_LENGTHS, S = 1024;
     the pool's at page 16, positions PAGED_LENGTHS), at the Llama-3-8B
@@ -58,7 +65,13 @@ def same_operands(cs, dev, g, cfg):
     cpos = torch.tensor(cs.CONTIG_LENGTHS, dtype=torch.int32, device=dev)
     pool, ptab = cs._paged_pool(dev, g, 2, Hkv, D, 16, cs.PAGED_LENGTHS)
     ppos = torch.tensor(cs.PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    kb, vb = cs._bf16_cache(dev, g, cs.TIMING_LAYERS, B, Hkv, 1024, D)
+    qb = bf16(B, Hq, D)
     runs = {"decode_prep": lambda i=0: KV.decode_prep(q, k, v, cos, sin),
+            "bf16_decode_attention_stacked": cs.rotating(
+                lambda j: KV.bf16_decode_attention_stacked(qb, kb, vb, j,
+                                                           cpos),
+                cs.TIMING_LAYERS),
             "kv_append_stacked_bf16": lambda i=0: KV.kv_append_stacked_bf16(
                 kc, vc, 1, pos, nk, nv),
             "kv_append_stacked": lambda i=0: KV.kv_append_stacked(
@@ -98,6 +111,18 @@ def main(argv):
     for name in argv[1:] or CHECKS:
         if name == "same_operands":
             print(json.dumps(same_operands(cs, dev, g, cfg)), flush=True)
+            continue
+        if name in PHASES:
+            t0 = time.perf_counter()
+            prompts = cs.serve_prompts(cfg)
+            rec = (cs.serve_bf16(dev, cfg, prompts, True)
+                   if name == "serve_bf16"
+                   else cs.quantize_phase(dev, prompts))[0]
+            rec = {k: {f: v for f, v in r.items() if not isinstance(v, list)}
+                   for k, r in rec.items()}
+            print(json.dumps({"phase": name, **rec,
+                              "s": time.perf_counter() - t0}), flush=True)
+            torch.cuda.empty_cache()
             continue
         r = getattr(cs, name)(dev, g, cfg)
         out = {"check": name, "kernel": r["name"],
