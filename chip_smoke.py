@@ -26,17 +26,29 @@ Phases (any failure raises and exits nonzero; nothing is caught):
                 the contiguous engine, the per-layer prefill/decode_step
                 and the per-layer paged oracles at page 16, in three
                 configurations (W4A4, W4A16 with an int4 lm_head, E8P): the
-                logits must agree.  The RSQ pipeline (run_rsq.sh config)
-                on a tiny model on the card against the CPU, call by call;
-                then the CLI's quantize, eval and serve on the card.
+                logits must agree.  The RSQ pipeline (run_rsq.sh config,
+                then rsq_e8p's LDLQ+E8P) on a tiny model on the card
+                against the CPU, call by call; then the CLI's quantize,
+                eval and serve on the card, and quantize --e8p then serve;
+                the C++ page allocator against its Python twin.  Every
+                engine of phases 5 and 6 must run on the C++ allocator or
+                scheduler.
   5. quantize -- the RSQ pipeline at Llama-3-8B width on 2 of its 32
-                layers, 32 synthetic calibration samples of 2048 tokens:
-                seconds per stage, peak memory, quant_error, PPL; the
-                result served by PagedServingEngine (page 512), its prefill
-                logits held against the fake-quant forward: W4A16 corr >
-                0.98; W4A4 within A4_MARGIN of the 4-bit-activation
-                forward's agreement with itself on bf16-rounded weights,
-                a bound the W4A16 prefill must miss.
+                layers, seeded params read through the Hugging Face ingest
+                (models/hf.py, from a state dict), 32 synthetic
+                calibration samples of 2048 tokens: seconds per stage,
+                peak memory, quant_error, PPL; the result served by
+                PagedServingEngine (page 512), its prefill logits held
+                against the fake-quant forward: W4A16 corr > 0.98; W4A4
+                within A4_MARGIN of the 4-bit-activation forward's
+                agreement with itself on bf16-rounded weights, a bound the
+                W4A16 prefill must miss.
+     quantize_e8p -- the same params and calibration on E8P_LAYERS
+                layers through LDLQ+E8P: seconds per stage and per
+                projection, peak memory; every served weight equal to the
+                pipeline's Q bit for bit, then ServingEngine serves it
+                weight-only on the affine-W4 kernel: prefill logits corr
+                > 0.98 with the 16-bit fake-quant forward.
   6. serve   -- ten paths at full Llama-3-8B width and depth (32 layers),
                 32 new tokens per request; each path's kernel launch counts
                 start at 0 just before it and must rise:
@@ -1679,6 +1691,164 @@ def quantize_vs_cpu(dev, cfg, params, calib, rsq):
     return n
 
 
+def run_e8p_config(nsamples: int):
+    """rsq_e8p of the reference's sweep (run_rsq_e8p.sh): 2 bits recorded,
+    rotate, attncon weighting 0.005-1, LDLQ+E8P with add_until_fail."""
+    import dataclasses
+    from rsq_tpu_torch.core.quant import WeightQuantConfig
+    return dataclasses.replace(run_rsq_config(nsamples), e8p=True,
+                               w=WeightQuantConfig(bits=2, sym=True))
+
+
+# A Hessian with a near-dead column (diag > 0 but below 1e-9 of the mean:
+# the first layer's q/k/v input after rotating a mean-centred embedding
+# has no component along the Hadamard's first column) makes LDLQ's
+# refinement multiply by the inverse of an almost singular 8x8 block: f32
+# rounding then moves codes, and the Hessian-weighted error moves within
+# this share (the reference itself moves it by 1.4e-2 under a 1e-7 change
+# of H; tests/test_torch_ldlq.py).  Other calls: codes differ in at most
+# E8P_ROWS_OFF of the rows (a rounding tie the card's sums decide the other
+# way, which the refinement carries along its row) and the error within
+# E8P_ERR_REL.
+CHAOTIC_REL, E8P_ROWS_OFF, E8P_ERR_REL = 5e-2, 1e-2, 1e-3
+
+
+def near_dead(H: torch.Tensor) -> bool:
+    """A diagonal entry above 0 but below 1e-9 of the mean."""
+    d = H.diagonal()
+    return bool(((d != 0) & (d < 1e-9 * d.mean())).any())
+
+
+def e8p_vs_cpu(dev, cfg, params, calib, rsq):
+    """quantize_model under LDLQ+E8P on the CPU, each ldlq_quantize call
+    recorded; then on the card, each call held against the CPU's at the
+    same place: the card's W within 1e-6 and H within 1e-5 of their largest
+    entries, then ldlq_quantize on the card on the CPU's W and H: scale
+    within 1e-6 relative, codes equal but for the rows and error shares
+    above (CHAOTIC_REL on a near-dead Hessian).  The CPU's weights and
+    codes then go on.  Returns the counts."""
+    from rsq_tpu_torch.quantize import pipeline as P
+    from rsq_tpu_torch.quantize.gptq import quant_error
+    ref = []
+
+    def record(fn):
+        def run(W, H, *, add_until_fail, device):
+            Q, info = fn(W, H, add_until_fail=add_until_fail, device=device)
+            ref.append((W.clone(), H.clone(), Q, info))
+            return Q, info
+        return run
+
+    with mock.patch.object(P, "ldlq_quantize", record(P.ldlq_quantize)):
+        _, want = P.quantize_model(params, cfg, rsq, calib, device="cpu")
+    calls = iter(ref)
+    n = {"calls": len(ref), "rows": 0, "rows_off": 0, "calls_off": 0,
+         "near_dead_calls": 0, "max_err_rel": 0.0, "max_err_rel_near_dead":
+         0.0, "max_h_err_over_max": 0.0}
+
+    def forced(fn):
+        def run(W, H, *, add_until_fail, device):
+            rW, rH, rQ, rinfo = next(calls)
+            ensure(float((W.cpu() - rW).abs().max())
+                   <= 1e-6 * float(rW.abs().max()),
+                   "e8p: the card's W differs from the CPU's")
+            e = float((H.cpu() - rH).abs().max() / rH.abs().max())
+            ensure(e <= 1e-5, f"e8p: Hessian differs by {e}")
+            n["max_h_err_over_max"] = max(n["max_h_err_over_max"], e)
+            Q, info = fn(rW.to(device), rH.to(device),
+                         add_until_fail=add_until_fail, device=device)
+            ensure(Q.device.type == "cuda", "LDLQ did not run on the card")
+            ensure(abs(float(info["scale"]) - float(rinfo["scale"]))
+                   <= 1e-6 * float(rinfo["scale"]), "e8p scale")
+            off = int((info["codes"].cpu() != rinfo["codes"]).any(1).sum())
+            err = abs(quant_error(rW, Q.cpu(), rH) - quant_error(rW, rQ, rH)
+                      ) / quant_error(rW, rQ, rH)
+            n["rows"] += rW.shape[0]
+            n["rows_off"] += off
+            n["calls_off"] += off > 0
+            if near_dead(rH):
+                n["near_dead_calls"] += 1
+                n["max_err_rel_near_dead"] = max(n["max_err_rel_near_dead"],
+                                                 err)
+                ensure(err <= CHAOTIC_REL, f"e8p near-dead call: {err}")
+            else:
+                n["max_err_rel"] = max(n["max_err_rel"], err)
+                ensure(off <= E8P_ROWS_OFF * rW.shape[0]
+                       and err <= E8P_ERR_REL,
+                       f"e8p: {off} rows off, error {err}")
+            return rQ.to(Q.device), dict(info, codes=rinfo["codes"],
+                                         scale=rinfo["scale"])
+        return run
+
+    with mock.patch.object(P, "ldlq_quantize", forced(P.ldlq_quantize)):
+        _, got = P.quantize_model(params, cfg, rsq, calib, device=dev)
+    ensure(next(calls, None) is None and got.keys() == want.keys()
+           and all("codes" in got[k] for k in want))
+    return n
+
+
+def allocator_trace(alloc, seed: int = 0, steps: int = 2000):
+    """A seeded sequence of the calls a paged engine makes on its page
+    allocator (alloc, incref and decref of held pages, prefix insert and
+    lookup of known and unknown hashes, eviction under pressure); the
+    record of every result and of the counts after each call."""
+    rng = np.random.default_rng(seed)
+    held, hashes, out = [], [], []
+    for _ in range(steps):
+        op = rng.choice(["alloc", "incref", "decref", "insert", "lookup"],
+                        p=[0.25, 0.1, 0.3, 0.15, 0.2])
+        if op == "alloc":
+            got = alloc.alloc(int(rng.integers(1, 4)))
+            held += got or []
+            out.append(("alloc", got))
+        elif op in ("incref", "decref", "insert") and held:
+            pid = held[int(rng.integers(len(held)))]
+            if op == "incref":
+                alloc.incref(pid)
+                held.append(pid)
+            elif op == "decref":
+                alloc.decref(pid)
+                held.remove(pid)
+            else:
+                # hashes as the engine makes them: 64-bit, some repeated
+                h = (int(rng.integers(0, 2**62)) if not hashes
+                     or rng.random() < 0.7
+                     else hashes[int(rng.integers(len(hashes)))])
+                hashes.append(h)
+                out.append(("insert", alloc.prefix_insert(h, pid)))
+        elif op == "lookup":
+            h = (hashes[int(rng.integers(len(hashes)))]
+                 if hashes and rng.random() < 0.8 else 2**62 + 1)
+            pid = alloc.prefix_lookup(h)
+            if pid >= 0:
+                held.append(pid)
+            out.append(("lookup", pid))
+        out.append((alloc.free_count, alloc.cached_count, alloc.stats))
+    return out
+
+
+def native_check():
+    """The C++ page allocator against PyPageAllocator on one seeded call
+    sequence (allocator_trace): every result and count equal; the C++
+    scheduler's accounting on a fixed sequence against the counts worked
+    out by hand."""
+    from rsq_tpu_torch.serving import native as N
+    t0 = time.perf_counter()
+    native = allocator_trace(N.NativePageAllocator(24))
+    ensure(native == allocator_trace(N.PyPageAllocator(24)),
+           "native page allocator differs from PyPageAllocator")
+    stats = native[-1][2]
+    ensure(min(stats.values()) > 0, stats)
+    s = N.NativeScheduler(2, 512, 128)
+    s.enqueue(7, 200, 100)
+    s.enqueue(8, 500, 100)
+    ensure(s.admit(7, 1) and not s.admit(8, 1) and s.admit(8, 0))
+    ensure((s.free_slots, s.pages_free, s.queue_len) == (0, 1, 0))
+    s.release(7)
+    ensure((s.free_slots, s.pages_free, s.slot_of(8)) == (1, 4, 0))
+    return {"allocator_calls": len(native), "allocator_stats": stats,
+            "seconds": time.perf_counter() - t0}
+
+
 def small_quantize_check(dev):
     """The tiny model quantized on the card and on the CPU, held call by
     call (quantize_vs_cpu); then the CLI on the card in this process:
@@ -1694,7 +1864,9 @@ def small_quantize_check(dev):
     calib = get_loaders("synthetic", nsamples=8, seqlen=64,
                         vocab_size=cfg.vocab_size)
     out = {"rsq_tiny_vs_cpu": quantize_vs_cpu(dev, cfg, params, calib,
-                                              run_rsq_config(8))}
+                                              run_rsq_config(8)),
+           "e8p_tiny_vs_cpu": e8p_vs_cpu(dev, cfg, params, calib,
+                                         run_e8p_config(8))}
     with tempfile.TemporaryDirectory() as ck:
         q = cli.main(["quantize", "--model", "tiny", "--cal-dataset",
                       "synthetic", "--nsamples", "8", "--train-seqlen", "64",
@@ -1716,6 +1888,30 @@ def small_quantize_check(dev):
     ensure(sv["requests"] == 4 and sv["new_tokens"] == 32, sv)
     out["cli"] = {"quantize_ppl": q["ppl"], "eval_ppl": e["ppl"],
                   "serve": sv}
+    # the 2-bit route: quantize --e8p saves the codes, serve runs them
+    # weight-only on the affine-W4 kernel (row 14)
+    from rsq_tpu_torch.kernels import LAUNCHES
+    with tempfile.TemporaryDirectory() as ck:
+        q = cli.main(["quantize", "--model", "tiny", "--cal-dataset",
+                      "synthetic", "--nsamples", "8", "--train-seqlen", "64",
+                      "--w-bits", "2", "--rotate", "--add-until-fail",
+                      "--e8p", "--weighting", "attncon", "--min-value",
+                      "0.005", "--max-value", "1", "--eval",
+                      "--eval-dataset", "synthetic", "--val-seqlen", "512",
+                      "--bsz", "64", "--save", ck])
+        before = LAUNCHES["w4_affine_matmul_stacked"]
+        sv = cli.main(["serve", "--load", ck, "--requests", "4",
+                       "--num-slots", "2", "--page-size", "128", "--max-seq",
+                       "512", "--prompt-len", "100", "--max-new-tokens", "8",
+                       "--attn-int8-qk"])
+        affine = LAUNCHES["w4_affine_matmul_stacked"] - before
+    ensure(q["device"] == sv["device"] == "cuda" and math.isfinite(q["ppl"]))
+    ensure(sv["e8p"] and not sv["a4"] and sv["requests"] == 4
+           and sv["new_tokens"] == 32, sv)
+    ensure(affine > 0, "cli serve of an E8P checkpoint skipped row 14")
+    out["cli_e8p"] = {"quantize_ppl": q["ppl"], "serve": sv,
+                      "w4_affine_matmul_stacked_launches": affine}
+    out["native"] = native_check()
     return out
 
 
@@ -1727,10 +1923,63 @@ EVAL_SEQS, EVAL_BSZ = 4, 2
 A4_MARGIN = 0.04
 
 
-def quantize_phase(dev, prompts):
+def hf_ingested_params(dev, cfg):
+    """Seeded random f32 params (made on the card, parked on the host) as a
+    Hugging Face Llama state dict ((out, in) weights, untied lm_head) with
+    a config object whose model_type is "llama", read back through
+    models/hf.config_from_hf and params_from_state_dict: the ingest at full
+    width.  The config must come back as `cfg` and every tensor bit for
+    bit."""
+    import dataclasses
+
+    from rsq_tpu_torch import tree_to
+    from rsq_tpu_torch.models import llama as M
+    from rsq_tpu_torch.models.hf import config_from_hf, params_from_state_dict
+    params = tree_to(M.init_params(cfg, torch.Generator(device=dev)
+                                   .manual_seed(0)), "cpu")
+    hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+                "up": "mlp.up_proj", "gate": "mlp.gate_proj",
+                "down": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T.contiguous()}
+    for i, lp in enumerate(params["layers"]):
+        base = f"model.layers.{i}."
+        sd[base + "input_layernorm.weight"] = lp["input_norm"]
+        sd[base + "post_attention_layernorm.weight"] = lp["post_norm"]
+        for name, hf in hf_names.items():
+            sd[f"{base}{hf}.weight"] = lp[name]["w"].T.contiguous()
+    hf_config = SimpleNamespace(
+        model_type="llama", vocab_size=cfg.vocab_size,
+        hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size,
+        num_hidden_layers=cfg.num_layers,
+        num_attention_heads=cfg.num_attention_heads,
+        num_key_value_heads=cfg.num_key_value_heads,
+        rope_theta=cfg.rope_theta, rope_scaling=None,
+        rms_norm_eps=cfg.rms_norm_eps, attention_bias=False,
+        tie_word_embeddings=False,
+        max_position_embeddings=cfg.max_position_embeddings)
+    got_cfg = config_from_hf(hf_config)
+    ensure(dataclasses.asdict(got_cfg) == dataclasses.asdict(cfg),
+           f"config_from_hf: {got_cfg}")
+    got = params_from_state_dict(sd, got_cfg)
+    del sd
+    ensure(torch.equal(got["embed"], params["embed"])
+           and torch.equal(got["lm_head"], params["lm_head"])
+           and all(torch.equal(g[n]["w"], p[n]["w"])
+                   and torch.equal(g["input_norm"], p["input_norm"])
+                   for g, p in zip(got["layers"], params["layers"])
+                   for n in hf_names), "params_from_state_dict")
+    return got_cfg, got
+
+
+def quantize_phase(dev, prompts, held):
     """The RSQ pipeline at Llama-3-8B width on QUANT_LAYERS of its 32
-    layers: seeded random f32 params (made on the card, parked on the
-    host), QUANT_SAMPLES synthetic calibration samples of QUANT_SEQLEN
+    layers: seeded random f32 params read through the Hugging Face ingest
+    (hf_ingested_params; kept in `held` for the E8P run),
+    QUANT_SAMPLES synthetic calibration samples of QUANT_SEQLEN
     tokens, the run_rsq.sh configuration.  Seconds of the rotation and per
     layer of the weighting, the Hessians and GPTQ (per projection), peak
     memory, the largest quant_error; PPL of the base model (FP16) and of
@@ -1767,11 +2016,11 @@ def quantize_phase(dev, prompts):
 
     cfg = dataclasses.replace(ModelConfig.llama3_8b(), num_layers=QUANT_LAYERS)
     t0 = time.perf_counter()
-    params = tree_to(M.init_params(cfg, torch.Generator(device=dev)
-                                   .manual_seed(0)), "cpu")
+    cfg, params = hf_ingested_params(dev, cfg)
     calib = get_loaders("synthetic", nsamples=QUANT_SAMPLES,
                         seqlen=QUANT_SEQLEN, vocab_size=cfg.vocab_size)
     setup_s = time.perf_counter() - t0
+    held.update(params=params, calib=calib, cfg=cfg)
     errs = {}
 
     def measure(fn):
@@ -1805,7 +2054,6 @@ def quantize_phase(dev, prompts):
     ppl_s = time.perf_counter() - t0
     ensure(math.isfinite(ppl_base) and ppl_quant < 1.5 * ppl_base,
            f"PPL base {ppl_base}, quantized {ppl_quant}")
-    del params
 
     sparams = S.quantize_lm_head(to_serving_params(qparams, quantizers, cfg,
                                                    device=dev))
@@ -1868,7 +2116,8 @@ def quantize_phase(dev, prompts):
     layers = stats["layers"]
     return {"quantize": {
         "model": f"llama3_8b widths, {QUANT_LAYERS} of 32 layers, seeded "
-                 "random f32 weights (torch.Generator seed 0)",
+                 "random f32 weights (torch.Generator seed 0) read through "
+                 "the Hugging Face ingest (models/hf.py)",
         "config": "run_rsq.sh: rotate, attncon 0.005-1, GPTQ W4 sym MSE "
                   "clip, add_until_fail",
         "reduced": {"layers": f"{QUANT_LAYERS} of 32",
@@ -1889,6 +2138,118 @@ def quantize_phase(dev, prompts):
         "max_quant_error": max(errs.values()),
         "ppl_base_fp16": ppl_base, "ppl_quant_w4a4kv4": ppl_quant,
         "ppl_s": ppl_s, **rec}}, launches
+
+
+# 1 of phase quantize's 2 layers: with both, the smoke after the device
+# check took 194 s on an H100 (over its 180 s budget; PERF.md section 6)
+E8P_LAYERS = 1
+
+
+def quantize_e8p_phase(dev, prompts, held):
+    """The E8P run of phase quantize: the same HF-ingested params and
+    calibration, E8P_LAYERS layers, the rsq_e8p configuration (rotate,
+    attncon 0.005-1, LDLQ+E8P, add_until_fail).  Seconds of the rotation
+    and per layer of the weighting, the Hessians and LDLQ (per
+    projection), peak memory, the largest quant_error.  The codes reach
+    serving (port-only, ROADMAP section 3): every projection's affine-int4
+    re-encoding, dequantized, equals the pipeline's Q bit for bit; then
+    ServingEngine serves the result weight-only as (D) does (INT4 KV,
+    online Hadamards, int8 QK, int8 lm_head; rows 1, 4, 14 and 16 must
+    launch), its prefill logits of each request's last prompt token held
+    against the fake-quant forward on the pipeline's weights with 16-bit
+    activations: corr > 0.98 (the W4A16 bound)."""
+    import dataclasses
+
+    from rsq_tpu_torch import tree_to
+    from rsq_tpu_torch.kernels.matmul_w4 import unpack_w4_planar
+    from rsq_tpu_torch.models import llama as M
+    from rsq_tpu_torch.models.policy import QuantPolicy
+    from rsq_tpu_torch.quantize import pipeline as P
+    from rsq_tpu_torch.quantize.gptq import quant_error
+    from rsq_tpu_torch.serving import model as S
+    from rsq_tpu_torch.serving import params as SP
+    from rsq_tpu_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(held["cfg"], num_layers=E8P_LAYERS)
+    params = dict(held["params"], layers=held["params"]["layers"][:E8P_LAYERS])
+    calib = held["calib"]
+    held.clear()
+    errs = {}
+
+    def measure(fn):
+        def run(W, H, *, add_until_fail, device):
+            Q, info = fn(W, H, add_until_fail=add_until_fail, device=device)
+            errs[len(errs)] = quant_error(W.to(Q.device), Q, H)
+            return Q, info
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    with mock.patch.object(P, "ldlq_quantize", measure(P.ldlq_quantize)):
+        qparams, quantizers = P.quantize_model(
+            params, cfg, run_e8p_config(QUANT_SAMPLES), calib, device=dev,
+            stats=stats)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, calib
+    ensure(len(errs) == 7 * E8P_LAYERS and all(
+        math.isfinite(e) and e >= 0 for e in errs.values()), errs)
+    ensure(len(quantizers) == 7 * E8P_LAYERS
+           and all("codes" in q for q in quantizers.values()))
+
+    sparams = SP.to_serving_params(qparams, quantizers, cfg, device=dev)
+    for i, lp in enumerate(sparams["layers"]):
+        for name in SP.QUANT_NAMES:
+            e = lp[name]
+            deq = (unpack_w4_planar(e["wp"]).float() + 0.5) * e["sh"]
+            ensure(set(e) == {"wp", "sh", "b"} and torch.equal(
+                deq, qparams["layers"][i][name]["w"].to(dev)),
+                f"served E8P weight of layers.{i}.{name} is not Q")
+            del deq
+    sparams = S.quantize_lm_head(SP.fuse_for_decode(sparams))
+    sc = S.ServingConfig(model=cfg, a4=False, kv_int4=True, kv_hadamard=True,
+                         online_had=True, max_seq=1024, attn_int8_qk=True)
+    rec, launches, done = drive(ServingEngine(sparams, sc, num_slots=BATCH,
+                                              device=dev),
+                                prompts, cfg, E8P_KERNELS)
+    served = [r.logit_trace[0] for r in sorted(done, key=lambda r: r.uid)]
+    del sparams
+    rot16 = QuantPolicy(online_had_down=True, online_had_o=True,
+                        norms_fused=True)
+    qdev = tree_to(qparams, dev)
+    with torch.no_grad():
+        fq = [M.forward(qdev, torch.as_tensor(p[None], device=dev), cfg,
+                        rot16)[0, -1].float().cpu().numpy() for p in prompts]
+    del qdev, qparams
+    torch.cuda.empty_cache()
+    corr = [float(np.corrcoef(x, y)[0, 1]) for x, y in zip(served, fq)]
+    log(json.dumps({"e8p_prefill_logit_corr": corr}))
+    ensure(min(corr) > 0.98, f"served E8P vs fake-quant prefill: {corr}")
+    layers = stats["layers"]
+    return {"quantize_e8p": {
+        "model": f"llama3_8b widths, {E8P_LAYERS} of 32 layers, the "
+                 "HF-ingested params of phase quantize",
+        "config": "run_rsq_e8p.sh: rotate, attncon 0.005-1, LDLQ+E8P "
+                  "(quip_tune_iters 10), add_until_fail",
+        "reduced": {"layers": f"{E8P_LAYERS} of 32 (phase quantize's "
+                              f"{QUANT_LAYERS} cut to keep the smoke within "
+                              "its time)",
+                    "nsamples": f"{QUANT_SAMPLES} of the reference's 128"},
+        "calibration": f"synthetic, {QUANT_SAMPLES} x {QUANT_SEQLEN}",
+        "quantize_s": quant_s, "rotate_s": stats["rotate_s"],
+        "layer_s": [st["layer_s"] for st in layers],
+        "weighting_s": [st["weighting_s"] for st in layers],
+        "hessian_s": [st["hessian_s"] for st in layers],
+        "ldlq_s": [st["gptq_s"] for st in layers],
+        "ldlq_s_by_proj": [st["gptq_s_by_proj"] for st in layers],
+        "full_depth_s_reckoned": stats["rotate_s"] + 32 * float(
+            np.mean([st["layer_s"] for st in layers])),
+        "quantize_peak_mem_gib": peak,
+        "max_quant_error": max(errs.values()),
+        "prefill_logit_corr": corr, **rec}}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1926,6 +2287,16 @@ def drive(eng, prompts, cfg, kernels):
     logits (prefill and the first two steps) and that each of `kernels`
     launched.  Returns (record, launches, finished requests)."""
     from rsq_tpu_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from rsq_tpu_torch.serving.native import (NativePageAllocator,
+                                              NativeScheduler)
+    # the engines run on the C++ allocator / scheduler, never on a silent
+    # Python fallback
+    if hasattr(eng, "alloc"):
+        ensure(isinstance(eng.alloc, NativePageAllocator),
+               f"paged engine on {type(eng.alloc).__name__}")
+    else:
+        ensure(isinstance(eng.sched, NativeScheduler),
+               "ServingEngine without the native scheduler")
     for p in prompts:
         eng.add_request(p, max_new_tokens=NEW_TOKENS)
     eng.record_logits = True
@@ -2474,7 +2845,10 @@ def main(argv):
         log(json.dumps(phases[-1][0]))
         log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
-    run_phase("quantize", lambda: quantize_phase(dev, prompts))
+    held = {}
+    run_phase("quantize", lambda: quantize_phase(dev, prompts, held))
+    torch.cuda.empty_cache()
+    run_phase("quantize_e8p", lambda: quantize_e8p_phase(dev, prompts, held))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     raw = random_serving_params(cfg, seed=0, device=dev)

@@ -6,12 +6,19 @@ the CPU on its own).
       --weighting attncon --min-value 0.005 --max-value 1 --w-clip \
       --add-until-fail --cal-dataset synthetic --save <dir> [--eval]
   python -m rsq_tpu_torch.cli eval --load <dir> [--a-bits 4 ...]
+  python -m rsq_tpu_torch.cli quantize --model <local HF dir> --e8p \
+      --rotate --add-until-fail --save <dir>
   python -m rsq_tpu_torch.cli serve --load <dir> [--attn-int8-qk]
 
 Named models (llama3-8b, llama2-7b, qwen25-7b, mistral-nemo, tiny) get
-seeded random weights.  Not ported yet: Hugging Face checkpoints and the
-OPT / Gemma-2 / Falcon families (ROADMAP item 15), `longtasks` (item 16),
---tp > 1 and --pp > 1 (item 17), --e8p (the LDLQ half of item 13).
+seeded random weights; a local directory is read as a Hugging Face
+checkpoint of the Llama family (models/hf.load_hf, which needs
+transformers; nothing is fetched from the hub).  --e8p quantizes with
+LDLQ+E8P and saves the codes, and `serve` serves such a checkpoint
+weight-only (16-bit activations) on the affine-W4 kernels, the codes
+re-encoded losslessly (port-only: the reference saves no codes, ROADMAP
+section 3).  Not ported yet: the OPT / Gemma-2 / Falcon families (ROADMAP
+item 15), `longtasks` (item 16), --tp > 1 and --pp > 1 (item 17).
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ def _build_parser():
 
     q = sub.add_parser("quantize", help="run the RSQ pipeline")
     q.add_argument("--model", default="tiny",
-                   help="a named config with random weights: tiny, "
-                        "llama3-8b, llama2-7b, qwen25-7b, mistral-nemo")
+                   help="a named config with random weights (tiny, "
+                        "llama3-8b, llama2-7b, qwen25-7b, mistral-nemo) "
+                        "or a local Hugging Face checkpoint directory")
     q.add_argument("--seed", type=int, default=0)
     q.add_argument("--rotate", action="store_true")
     q.add_argument("--rotate-mode", default="hadamard",
@@ -121,14 +129,20 @@ NAMED = ("tiny", "llama3-8b", "llama2-7b", "qwen25-7b", "mistral-nemo")
 
 
 def _load_model(name: str, seed: int):
+    import os
+
     import torch
 
     from rsq_tpu_torch.models import family
     from rsq_tpu_torch.models.config import ModelConfig
     if name not in NAMED:
+        if os.path.isdir(name):
+            from rsq_tpu_torch.models.hf import load_hf
+            return load_hf(name)
         raise NotImplementedError(
-            f"model {name!r}: Hugging Face checkpoints and the OPT / Gemma-2 "
-            f"/ Falcon families are ROADMAP item 15; named: {NAMED}")
+            f"model {name!r}: not a named model nor a local directory (the "
+            f"hub is not read; the OPT / Gemma-2 / Falcon families are "
+            f"ROADMAP item 15); named: {NAMED}")
     cfg = getattr(ModelConfig, name.replace("-", "_"))()
     params = family.init_params(cfg, torch.Generator().manual_seed(seed),
                                 scale=0.05 if name == "tiny" else 0.02)
@@ -236,7 +250,8 @@ def cmd_eval(a):
 
 def cmd_serve(a):
     """Throughput run of the paged continuous-batching engine on a saved
-    checkpoint."""
+    checkpoint; one with E8P codes is served weight-only (a4 off), as the
+    affine-W4 route is."""
     import numpy as np
 
     from rsq_tpu_torch import resolve_device
@@ -251,7 +266,8 @@ def cmd_serve(a):
     dev = resolve_device(a.device)
     params, quantizers, cfg, manifest = load_quantized(a.load)
     sparams = to_serving_params(params, quantizers, cfg, device=dev)
-    sc = S.ServingConfig(model=cfg, a4=not a.no_a4, kv_int4=True,
+    e8p = any("codes" in q for q in quantizers.values())
+    sc = S.ServingConfig(model=cfg, a4=not (a.no_a4 or e8p), kv_int4=True,
                          kv_hadamard=True,
                          online_had=manifest.get("meta", {}).get("rotate",
                                                                  False),
@@ -270,6 +286,7 @@ def cmd_serve(a):
     out = {"requests": len(done), "new_tokens": new_tokens,
            "seconds": round(dt, 2), "tok_per_sec": round(new_tokens / dt, 1),
            "num_slots": a.num_slots, "page_size": a.page_size,
+           "e8p": e8p, "a4": sc.a4,
            "device": str(dev)}
     print(json.dumps(out))
     return out

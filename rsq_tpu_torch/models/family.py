@@ -1,6 +1,7 @@
 """Family dispatch (the port of rsq_tpu.models.family), for the Llama
-family (llama, qwen2, mistral).  OPT, Gemma-2 and Falcon are ROADMAP item
-15: asking for one raises."""
+family (llama, qwen2, mistral; named random models or a local Hugging Face
+checkpoint through models/hf.py).  OPT, Gemma-2 and Falcon are the open
+half of ROADMAP item 15: asking for one raises."""
 
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ def module_for(cfg: ModelConfig):
     if cfg.family not in LLAMA_FAMILY:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP item "
-            "15: OPT, Gemma-2 and Falcon); the port runs the Llama family")
+            "15, its second half: OPT, Gemma-2 and Falcon); the port runs "
+            "the Llama family")
     return llama
 
 

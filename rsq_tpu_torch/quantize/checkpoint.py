@@ -3,8 +3,13 @@ rsq_tpu.quantize.checkpoint, its npz + manifest format).
 
 One directory with
   manifest.json   the model config, quantizer bits, meta, norms_fused
-  arrays.npz      every array leaf: params and quantizer scales / zeros
+  arrays.npz      every array leaf: params and quantizer scales / zeros,
+                  and the E8P codes of quantizers that hold them
 A checkpoint written by either package loads in the other, bit for bit.
+Port-only (ROADMAP section 3): an E8P quantizer's codes (rows, in/8) are
+saved as `quant.<key>.codes` and load_quantized returns them, so the
+checkpoint serves on the affine-W4 rows; the reference's loader reads
+only scale and zero and ignores them, and never writes them.
 The reference's orbax pair (sharded, multi-host) is not ported (ROADMAP).
 """
 
@@ -42,6 +47,8 @@ def _flatten(params, quantizers, cfg: ModelConfig):
     for key, info in quantizers.items():
         arrays[f"quant.{key}.scale"] = _np(info["scale"])
         arrays[f"quant.{key}.zero"] = _np(info["zero"])
+        if info.get("codes") is not None:
+            arrays[f"quant.{key}.codes"] = _np(info["codes"])
     return arrays
 
 
@@ -92,8 +99,12 @@ def load_quantized(path: str, dtype=torch.float32):
     params = {"embed": arr("embed"),
               "final_norm": arr("final_norm", required=False),
               "lm_head": arr("lm_head"), "layers": layers}
-    quantizers = {key: {"scale": torch.from_numpy(arrays[f"quant.{key}.scale"]),
-                        "zero": torch.from_numpy(arrays[f"quant.{key}.zero"]),
-                        "bits": bits}
-                  for key, bits in manifest["quantizer_bits"].items()}
+    quantizers = {}
+    for key, bits in manifest["quantizer_bits"].items():
+        q = {"scale": torch.from_numpy(arrays[f"quant.{key}.scale"]),
+             "zero": torch.from_numpy(arrays[f"quant.{key}.zero"]),
+             "bits": bits}
+        if f"quant.{key}.codes" in arrays:
+            q["codes"] = torch.from_numpy(arrays[f"quant.{key}.codes"])
+        quantizers[key] = q
     return params, quantizers, cfg, manifest

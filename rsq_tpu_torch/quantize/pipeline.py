@@ -29,6 +29,7 @@ from rsq_tpu_torch.models.config import ModelConfig
 from rsq_tpu_torch.models.policy import QuantPolicy
 from rsq_tpu_torch.quantize import rotation
 from rsq_tpu_torch.quantize.gptq import GPTQConfig, gptq_quantize, rtn_quantize
+from rsq_tpu_torch.quantize.ldlq import ldlq_quantize
 from rsq_tpu_torch.quantize.weighting import (
     WeightingConfig, calibration_mask, compute_sample_weight,
     token_frequencies)
@@ -164,15 +165,17 @@ def quantize_model(params, cfg: ModelConfig, rsq: RSQConfig, calib_ids,
     params: the model's param tree (not mutated); calib_ids: (N, L) ints.
     Returns (new_params, quantizers): new_params parked on the host,
     quantizers {"layers.<i>.<name>": {scale, zero, bits}} with host
-    tensors.  stats, when given, is filled with seconds per stage
-    ("rotate_s", and per layer "weighting_s", "hessian_s", "gptq_s" and
-    "gptq_s_by_proj"), the device synchronized before each reading."""
+    tensors.  Under rsq.e8p each projection goes through LDLQ+E8P
+    (ldlq_quantize, bits as bits_for gives them, as the reference records
+    them) and its entry also holds "codes" (rows, in/8) int32: the
+    reference keeps only scale, zero and bits, so its checkpoints never
+    reach the E8P serving route; the port's do (ROADMAP section 3).  stats,
+    when given, is filled with seconds per stage ("rotate_s", and per layer
+    "weighting_s", "hessian_s", "gptq_s" and "gptq_s_by_proj", the
+    quantizer's seconds whichever it is), the device synchronized before
+    each reading."""
     dev = resolve_device(device)
     family.module_for(cfg)
-    if rsq.e8p:
-        raise NotImplementedError(
-            "E8P (LDLQ) quantization is not ported yet: ROADMAP item 13, the "
-            "LDLQ half of quantize/ldlq.py")
     t_start = time.perf_counter()
     rng = np.random.default_rng(rsq.seed)
 
@@ -239,7 +242,11 @@ def quantize_model(params, cfg: ModelConfig, rsq: RSQConfig, calib_ids,
                 bits = rsq.bits_for(i, name)
                 wq = dataclasses.replace(rsq.w, bits=bits)
                 Wt = lp[name]["w"].T          # GPTQ's (out, in)
-                if rsq.w_rtn:
+                if rsq.e8p:
+                    Qw, info = ldlq_quantize(
+                        Wt, H, add_until_fail=rsq.gptq.add_until_fail,
+                        device=dev)
+                elif rsq.w_rtn:
                     Qw, info = rtn_quantize(Wt, wq, device=dev)
                 else:
                     Qw, info = gptq_quantize(Wt, H, wq, rsq.gptq, device=dev)
@@ -248,6 +255,10 @@ def quantize_model(params, cfg: ModelConfig, rsq: RSQConfig, calib_ids,
                 quantizers[f"layers.{i}.{name}"] = {
                     "scale": info["scale"].cpu(), "zero": info["zero"].cpu(),
                     "bits": bits}
+                if "codes" in info:
+                    # port-only: the reference drops the codes here
+                    quantizers[f"layers.{i}.{name}"]["codes"] = \
+                        info["codes"].cpu()
                 t2 = clock()
                 st["gptq_s_by_proj"][name] = t2 - t1
                 t1 = t2

@@ -5,10 +5,11 @@ B cache slots decode jointly with per-slot lengths and positions; a
 finished sequence frees its slot and a queued request is admitted by
 prefilling into the free slot while the other slots keep their state.
 
-The reference can hand its slot and page accounting to a C++ scheduler
-(serving/native.maybe_scheduler) and runs in Python alone when that is
-absent; the scheduler only counts on the host, and its binding is not
-ported yet, so this engine always runs the Python bookkeeping.
+As in the reference, the C++ scheduler (serving/native.maybe_scheduler)
+keeps the slot and page accounting when g++ can build it: every request
+is enqueued there, admitted into its slot and released at retirement, and
+an admission it refuses is an error.  Without it (`sched` is None) the
+engine runs in Python alone.  The scheduler only counts on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from rsq_tpu_torch import resolve_device
 from rsq_tpu_torch.serving.model import (ServingConfig, _prefill_fast,
                                          decode_step_stacked, init_cache,
                                          stack_layer_params)
+from rsq_tpu_torch.serving.native import maybe_scheduler
 
 # the stacked fast path takes per-slot lengths natively
 decode_step_varlen = decode_step_stacked
@@ -91,12 +93,17 @@ class ServingEngine:
         self.queue: list[Request] = []
         self.next_tok = np.zeros((num_slots,), np.int32)
         self._uid = 0
+        # the C++ scheduler keeps slot/page accounting when available
+        self.sched = maybe_scheduler(num_slots, sc.max_seq)
 
     def add_request(self, prompt_ids, max_new_tokens: int = 32) -> int:
         self._uid += 1
-        self.queue.append(Request(self._uid, np.asarray(prompt_ids, np.int32),
-                                  max_new_tokens))
-        return self._uid
+        req = Request(self._uid, np.asarray(prompt_ids, np.int32),
+                      max_new_tokens)
+        self.queue.append(req)
+        if self.sched is not None:
+            self.sched.enqueue(req.uid, len(req.prompt_ids), max_new_tokens)
+        return req.uid
 
     def _record(self, req: Request, logits):
         if self.record_logits:
@@ -106,6 +113,10 @@ class ServingEngine:
         for slot in range(self.num_slots):
             if self.slots[slot] is None and self.queue:
                 req = self.queue.pop(0)
+                if self.sched is not None and not self.sched.admit(req.uid,
+                                                                   slot):
+                    raise RuntimeError(f"the scheduler refused request "
+                                       f"{req.uid} in slot {slot}")
                 s = len(req.prompt_ids)
                 padded = np.zeros((1, bucket_length(s)), np.int64)
                 padded[0, :s] = req.prompt_ids
@@ -121,9 +132,12 @@ class ServingEngine:
                 self.next_tok[slot] = tok
 
     def _retire(self, slot: int):
-        self.slots[slot].done = True
+        req = self.slots[slot]
+        req.done = True
         self.slots[slot] = None
         self.lengths[slot] = 0
+        if self.sched is not None:
+            self.sched.release(req.uid)
 
     def step(self) -> list[Request]:
         """Admit queued requests, run one joint decode step, retire finished

@@ -41,7 +41,7 @@ from rsq_tpu_torch.serving.model import (ServingConfig, _attn_out,
                                          _mlp, _qkv, _sl, attn_out_fast,
                                          lm_head_logits, mlp_fast, qkv_fast,
                                          stack_layer_params)
-from rsq_tpu_torch.serving.native import PyPageAllocator
+from rsq_tpu_torch.serving.native import make_page_allocator
 
 _FNV_OFFSET = 0xCBF29CE484222325
 _FNV_PRIME = 0x100000001B3
@@ -362,7 +362,8 @@ class PagedServingEngine:
         self.pool = PKV.init_pool(cfg.num_layers, num_pages,
                                   cfg.num_key_value_heads, cfg.head_dim_,
                                   page_size, device=self.device)
-        self.alloc = PyPageAllocator(num_pages)
+        # the C++ allocator (serving/native), or its Python twin without g++
+        self.alloc = make_page_allocator(num_pages)
         # permanent scratch page: idle slots' rows point here, so their
         # appends (and tail-bucket padding) never touch a live page
         self.null_page = self.alloc.alloc(1)[0]

@@ -1471,3 +1471,71 @@ def test_prepare_hinv_at_llama3_intermediate(dev):
     Hd = H + 0.01 * H.diagonal().mean() * torch.eye(n, device=dev)
     r = Hd @ (U.T @ (U @ e)) - e
     assert float(r.abs().max()) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# LDLQ + E8P on the card against the CPU (plain tensor code on
+# torch.matmul / torch.linalg, as the reference's is XLA's)
+# ---------------------------------------------------------------------------
+
+def _ldlq_problem(rows, cols, seed):
+    """W at 0.05 and H = (2/n) A^T A of a correlated A (f32), as
+    tests/test_torch_ldlq.py builds them."""
+    rng = np.random.default_rng(seed)
+    W = (rng.standard_normal((rows, cols)) * 0.05).astype(np.float32)
+    A = (rng.standard_normal((4 * cols, cols))
+         @ (np.eye(cols) + 0.3 * rng.standard_normal((cols, cols)) / np.sqrt(
+             cols / 64))).astype(np.float32)
+    return (torch.from_numpy(W),
+            torch.from_numpy(((2.0 / (4 * cols)) * A.T @ A).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_e8p_on_card_bit_equal(dev, seed):
+    """The two-coset search on 4096 rows: values and codes bit-equal."""
+    from rsq_tpu_torch.quantize import ldlq as TL
+    X = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        (4096, 8)) * (1 + seed)).astype(np.float32))
+    want_v, want_c = TL.quantize_e8p(X)
+    got_v, got_c = TL.quantize_e8p(X.to(dev))
+    assert got_v.device.type == "cuda"
+    assert torch.equal(got_c.cpu(), want_c)
+    assert torch.equal(_bits(got_v.cpu()), _bits(want_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,seed,iters", [(64, 256, 0, 10),
+                                                  (256, 1024, 1, 10),
+                                                  (128, 512, 2, 0),
+                                                  (128, 512, 3, 2)])
+def test_ldlq_on_card_matches_cpu(dev, rows, cols, seed, iters):
+    """ldlq_quantize on the same W and H on both devices: codes equal, Q
+    within 1e-6 relative (the scale's norm sums in another order), and Q
+    the codes' grid values times the scale, bit for bit, on the card."""
+    from rsq_tpu_torch.quantize import ldlq as TL
+    W, H = _ldlq_problem(rows, cols, seed)
+    want, winfo = TL.ldlq_quantize(W, H, quip_tune_iters=iters, device="cpu")
+    got, ginfo = TL.ldlq_quantize(W, H, quip_tune_iters=iters, device=dev)
+    assert got.device.type == "cuda" and ginfo["codes"].device.type == "cuda"
+    assert float(ginfo["scale"]) == pytest.approx(float(winfo["scale"]),
+                                                  rel=1e-6)
+    assert torch.equal(ginfo["codes"].cpu(), winfo["codes"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    assert torch.equal(TL.e8p_dequantize(ginfo["codes"], ginfo["scale"]), got)
+
+
+@pytest.mark.cuda
+def test_e8p_pipeline_on_card_matches_cpu(dev):
+    """The tiny model under the rsq_e8p config, every ldlq_quantize call
+    held against the CPU's on the same W and H (chip_smoke.e8p_vs_cpu)."""
+    import chip_smoke as CS
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.models.llama import init_params
+    from rsq_tpu_torch.quantize.data import get_loaders
+    cfg = ModelConfig.tiny(num_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(1), scale=0.05)
+    calib = get_loaders("synthetic", nsamples=8, seqlen=64, seed=1,
+                        vocab_size=cfg.vocab_size)
+    n = CS.e8p_vs_cpu(dev, cfg, params, calib, CS.run_e8p_config(8))
+    assert n["calls"] == 14 and n["rows_off"] <= CS.E8P_ROWS_OFF * n["rows"]

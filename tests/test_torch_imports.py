@@ -75,7 +75,9 @@ def _needs_no_gpu():
                                    "gptq_quantize", "rtn_quantize",
                                    "rotate_model", "ppl_fullmodel",
                                    "ppl_streamed", "cli_quantize",
-                                   "cli_eval", "cli_serve"])
+                                   "cli_eval", "cli_serve",
+                                   "ldlq_quantize", "finetune_layer",
+                                   "cli_quantize_e8p"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _needs_no_gpu()
     from rsq_tpu_torch import cli
@@ -83,7 +85,8 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
     from rsq_tpu_torch.eval import ppl
     from rsq_tpu_torch.models.llama import init_params
     from rsq_tpu_torch.models.policy import FP16
-    from rsq_tpu_torch.quantize import gptq, pipeline, rotation
+    from rsq_tpu_torch.quantize import (finetune, gptq, ldlq, pipeline,
+                                        rotation)
     from rsq_tpu_torch.quantize.checkpoint import save_quantized
     cfg = ModelConfig.tiny()
     params = init_params(cfg)
@@ -108,6 +111,15 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
         "cli_eval": lambda: cli.main(["eval", "--load", str(tmp_path),
                                       "--eval-dataset", "synthetic"]),
         "cli_serve": lambda: cli.main(["serve", "--load", str(tmp_path)]),
+        "cli_quantize_e8p": lambda: cli.main(["quantize", "--e8p",
+                                              "--cal-dataset", "synthetic",
+                                              "--nsamples", "2",
+                                              "--train-seqlen", "8"]),
+        "ldlq_quantize": lambda: ldlq.ldlq_quantize(torch.ones(4, 8),
+                                                    torch.eye(8)),
+        "finetune_layer": lambda: finetune.finetune_layer(
+            params["layers"][0], {}, 0, np.zeros((2, 8, cfg.hidden_size)),
+            np.zeros((2, 8, cfg.hidden_size)), cfg, FP16),
         "init_pool": lambda: TPKV.init_pool(2, 3, 2, 16, 128),
         "from_numpy_params": lambda: TP.from_numpy_params(
             {"w": np.zeros((2, 2), np.float32)}),

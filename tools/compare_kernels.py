@@ -117,7 +117,7 @@ def main(argv):
             prompts = cs.serve_prompts(cfg)
             rec = (cs.serve_bf16(dev, cfg, prompts, True)
                    if name == "serve_bf16"
-                   else cs.quantize_phase(dev, prompts))[0]
+                   else cs.quantize_phase(dev, prompts, {}))[0]
             rec = {k: {f: v for f, v in r.items() if not isinstance(v, list)}
                    for k, r in rec.items()}
             print(json.dumps({"phase": name, **rec,

@@ -40,7 +40,7 @@ def main(argv):
         init = functools.partial(M.init_params, scale=scale)
         with mock.patch.object(M, "init_params", init):
             try:
-                cs.quantize_phase(dev, prompts)
+                cs.quantize_phase(dev, prompts, {})
                 held = True
             except AssertionError:
                 held = False
