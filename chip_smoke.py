@@ -30,12 +30,15 @@ Phases (any failure raises and exits nonzero; nothing is caught):
                 then rsq_e8p's LDLQ+E8P) on a tiny model on the card
                 against the CPU, call by call; then the CLI's quantize,
                 eval and serve on the card, and quantize --e8p then serve;
-                the C++ page allocator against its Python twin.  Every
-                engine of phases 5 and 6 must run on the C++ allocator or
-                scheduler.
-  5. quantize -- the RSQ pipeline at Llama-3-8B width on 2 of its 32
-                layers, seeded params read through the Hugging Face ingest
-                (models/hf.py, from a state dict), 32 synthetic
+                the C++ page allocator against its Python twin.  The OPT,
+                Gemma-2 and Falcon (shared-norm MQA and two-norm GQA) tiny
+                models through the same pipeline on the card against the
+                CPU, call by call; the CLI's quantize --eval and eval on
+                tiny-falcon, and serve refusing it.  Every engine of
+                phases 5 and 6 must run on the C++ allocator or scheduler.
+  5. quantize -- the RSQ pipeline at Llama-3-8B width on QUANT_LAYERS of
+                its 32 layers, seeded params read through the Hugging
+                Face ingest (models/hf.py, from a state dict), 32 synthetic
                 calibration samples of 2048 tokens: seconds per stage,
                 peak memory, quant_error, PPL; the result served by
                 PagedServingEngine (page 512), its prefill logits held
@@ -49,6 +52,17 @@ Phases (any failure raises and exits nonzero; nothing is caught):
                 pipeline's Q bit for bit, then ServingEngine serves it
                 weight-only on the affine-W4 kernel: prefill logits corr
                 > 0.98 with the 16-bit fake-quant forward.
+     quantize_families -- falcon-7b, gemma-2-9b and opt-125m at their
+                published widths on 1, 1 and 2 layers, seeded params read
+                through each family's Hugging Face ingest (bit for bit);
+                the rotated model's logits against the original's (OPT,
+                Falcon) or rotate_model refused (Gemma-2); the pipeline
+                on 32 samples of 2048 tokens: seconds per stage and
+                projection, the full depth reckoned, peak memory,
+                quant_error; the card's fake-quant logits against the
+                CPU's; a finite PPL.  No kernel: these families are
+                quantized and evaluated, not served (rsq_tpu serves the
+                Llama family only).
   6. serve   -- ten paths at full Llama-3-8B width and depth (32 layers),
                 32 new tokens per request; each path's kernel launch counts
                 start at 0 just before it and must rise:
@@ -79,6 +93,7 @@ and the step's stream syncs, copies and launches.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1637,7 +1652,7 @@ def one_step_off(got, want, step) -> int:
     return int(off.sum())
 
 
-def quantize_vs_cpu(dev, cfg, params, calib, rsq):
+def quantize_vs_cpu(dev, cfg, params, calib, rsq, on_cpu_state=False):
     """quantize_model on the CPU (plain versions), each GPTQ call recorded;
     then on the card, each call held against the CPU's at the same place on
     the same state: W within 1e-6 and H within 1e-5 of their largest
@@ -1646,7 +1661,10 @@ def quantize_vs_cpu(dev, cfg, params, calib, rsq):
     weights then go on, so a flipped tie does not move the next groups'
     Hessians (the ROADMAP holds logits on identical state for the same
     reason).  Then the same quantizer keys and bits, scales within 1e-5
-    relative.  Returns the counts."""
+    relative.  on_cpu_state: GPTQ on the card runs on the CPU's W and H
+    (the other families: a call can be chaotic, as OPT's layer-0 o is in
+    the reference, whose entries move by up to 2 steps under a 1e-7
+    change of H; tests/test_torch_families.py).  Returns the counts."""
     from rsq_tpu_torch.quantize import pipeline as P
     ref = []
 
@@ -1672,6 +1690,8 @@ def quantize_vs_cpu(dev, cfg, params, calib, rsq):
             e = float((H.cpu() - rH).abs().max() / rH.abs().max())
             ensure(e <= 1e-5, f"quantize: Hessian differs by {e}")
             n["max_h_err_over_max"] = max(n["max_h_err_over_max"], e)
+            if on_cpu_state:
+                W, H = rW.to(device), rH.to(device)
             Q, info = fn(W, H, wq, cfg_, device=device)
             ensure(Q.device.type == "cuda", "GPTQ did not run on the card")
             n["one_step_off"] += one_step_off(Q.cpu(), rQ, rs)
@@ -1912,10 +1932,71 @@ def small_quantize_check(dev):
     out["cli_e8p"] = {"quantize_ppl": q["ppl"], "serve": sv,
                       "w4_affine_matmul_stacked_launches": affine}
     out["native"] = native_check()
+    out.update(small_families_check(dev))
     return out
 
 
-QUANT_LAYERS, QUANT_SAMPLES, QUANT_SEQLEN = 2, 32, 2048
+def small_families_check(dev):
+    """The OPT, Gemma-2 and Falcon (shared-norm MQA and two-norm GQA) tiny
+    models through quantize_model (run_rsq.sh's configuration, rotated but
+    on Gemma-2) on the card and on the CPU, held call by call
+    (quantize_vs_cpu on the CPU's state); then the CLI on the card:
+    quantize --model tiny-falcon --rotate --eval --save, eval --load (the
+    same PPL), and serve refusing the checkpoint (rsq_tpu serves the Llama
+    family only)."""
+    import dataclasses
+    import tempfile
+
+    from rsq_tpu_torch import cli
+    from rsq_tpu_torch.models import family
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.quantize.data import get_loaders
+    out = {}
+    for name, cfg in (("opt", ModelConfig.tiny_opt()),
+                      ("gemma2", ModelConfig.tiny_gemma2()),
+                      ("falcon", ModelConfig.tiny_falcon()),
+                      ("falcon_two_norms", ModelConfig.tiny_falcon(
+                          falcon_two_norms=True, num_key_value_heads=2))):
+        params = family.init_params(cfg, torch.Generator().manual_seed(0),
+                                    scale=0.05)
+        calib = get_loaders("synthetic", nsamples=8, seqlen=64,
+                            vocab_size=cfg.vocab_size)
+        rsq = dataclasses.replace(run_rsq_config(8),
+                                  rotate=cfg.family != "gemma2")
+        t0 = time.perf_counter()
+        out[f"rsq_tiny_{name}_vs_cpu"] = quantize_vs_cpu(
+            dev, cfg, params, calib, rsq, on_cpu_state=True)
+        out[f"rsq_tiny_{name}_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck:
+        q = cli.main(["quantize", "--model", "tiny-falcon", "--cal-dataset",
+                      "synthetic", "--nsamples", "8", "--train-seqlen", "64",
+                      "--w-bits", "4", "--w-clip", "--rotate", "--weighting",
+                      "attncon", "--min-value", "0.005", "--max-value", "1",
+                      "--add-until-fail", "--eval", "--eval-dataset",
+                      "synthetic", "--val-seqlen", "512", "--bsz", "64",
+                      "--save", ck])
+        e = cli.main(["eval", "--load", ck, "--eval-dataset", "synthetic",
+                      "--val-seqlen", "512", "--bsz", "64"])
+        refused = False
+        try:
+            cli.main(["serve", "--load", ck])
+        except NotImplementedError:
+            refused = True
+    ensure(q["device"] == e["device"] == "cuda")
+    ensure(math.isfinite(q["ppl"]) and abs(q["ppl"] - e["ppl"])
+           <= 1e-5 * q["ppl"], f"cli tiny-falcon PPL {q['ppl']} / {e['ppl']}")
+    ensure(refused, "cli serve took a Falcon checkpoint")
+    out["cli_falcon"] = {"quantize_ppl": q["ppl"], "eval_ppl": e["ppl"],
+                         "serve_refused": refused,
+                         "seconds": time.perf_counter() - t0}
+    return out
+
+
+# 1 of Llama-3-8B's 32 layers: with 2 (and phase quantize_families) the
+# smoke after the device check took 226.8 s on an H100, over its 180 s
+# budget (PERF.md section 6)
+QUANT_LAYERS, QUANT_SAMPLES, QUANT_SEQLEN = 1, 32, 2048
 EVAL_SEQS, EVAL_BSZ = 4, 2
 # mean prefill-logit corr of the W4A4 path with the 4-bit-activation
 # forward, below that forward's with itself on bf16-rounded weights: -0.003
@@ -1925,7 +2006,8 @@ A4_MARGIN = 0.04
 
 def hf_ingested_params(dev, cfg):
     """Seeded random f32 params (made on the card, parked on the host) as a
-    Hugging Face Llama state dict ((out, in) weights, untied lm_head) with
+    Hugging Face Llama state dict ((out, in) weights as transposed views,
+    no host copy; untied lm_head) with
     a config object whose model_type is "llama", read back through
     models/hf.config_from_hf and params_from_state_dict: the ingest at full
     width.  The config must come back as `cfg` and every tensor bit for
@@ -1943,13 +2025,13 @@ def hf_ingested_params(dev, cfg):
                 "down": "mlp.down_proj"}
     sd = {"model.embed_tokens.weight": params["embed"],
           "model.norm.weight": params["final_norm"],
-          "lm_head.weight": params["lm_head"].T.contiguous()}
+          "lm_head.weight": params["lm_head"].T}
     for i, lp in enumerate(params["layers"]):
         base = f"model.layers.{i}."
         sd[base + "input_layernorm.weight"] = lp["input_norm"]
         sd[base + "post_attention_layernorm.weight"] = lp["post_norm"]
         for name, hf in hf_names.items():
-            sd[f"{base}{hf}.weight"] = lp[name]["w"].T.contiguous()
+            sd[f"{base}{hf}.weight"] = lp[name]["w"].T
     hf_config = SimpleNamespace(
         model_type="llama", vocab_size=cfg.vocab_size,
         hidden_size=cfg.hidden_size,
@@ -2030,16 +2112,25 @@ def quantize_phase(dev, prompts, held):
             return Q, info
         return run
 
+    def keep(fn):
+        def run(*a, **k):
+            held["rotated"] = fn(*a, **k)
+            return held["rotated"]
+        return run
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
-    with mock.patch.object(P, "gptq_quantize", measure(P.gptq_quantize)):
+    with mock.patch.object(P, "gptq_quantize", measure(P.gptq_quantize)), \
+            mock.patch.object(P.rotation, "rotate_model",
+                              keep(P.rotation.rotate_model)):
         qparams, quantizers = P.quantize_model(
             params, cfg, run_rsq_config(QUANT_SAMPLES), calib, device=dev,
             stats=stats)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
+    held["rotate_s"] = stats["rotate_s"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     ensure(len(errs) == 7 * QUANT_LAYERS and all(
         math.isfinite(e) and e >= 0 for e in errs.values()), errs)
@@ -2140,15 +2231,16 @@ def quantize_phase(dev, prompts, held):
         "ppl_s": ppl_s, **rec}}, launches
 
 
-# 1 of phase quantize's 2 layers: with both, the smoke after the device
-# check took 194 s on an H100 (over its 180 s budget; PERF.md section 6)
+# phase quantize's layer: with 2, the smoke after the device check took
+# 194 s on an H100 (over its 180 s budget; PERF.md section 6)
 E8P_LAYERS = 1
 
 
 def quantize_e8p_phase(dev, prompts, held):
     """The E8P run of phase quantize: the same HF-ingested params and
     calibration, E8P_LAYERS layers, the rsq_e8p configuration (rotate,
-    attncon 0.005-1, LDLQ+E8P, add_until_fail).  Seconds of the rotation
+    attncon 0.005-1, LDLQ+E8P, add_until_fail); on phase quantize's
+    layers, its rotation (the same call) is reused.  Seconds of the rotation
     and per layer of the weighting, the Hessians and LDLQ (per
     projection), peak memory, the largest quant_error.  The codes reach
     serving (port-only, ROADMAP section 3): every projection's affine-int4
@@ -2173,6 +2265,15 @@ def quantize_e8p_phase(dev, prompts, held):
     cfg = dataclasses.replace(held["cfg"], num_layers=E8P_LAYERS)
     params = dict(held["params"], layers=held["params"]["layers"][:E8P_LAYERS])
     calib = held["calib"]
+    rotate = contextlib.nullcontext()
+    if E8P_LAYERS == QUANT_LAYERS:
+        # the same params and seed: phase quantize's rotation is this one
+        def reuse(p, c, mode, seed, device):
+            ensure((c, mode, seed) == (cfg, "hadamard", 0))
+            return rotated
+        rotated = held["rotated"]
+        rotate = mock.patch.object(P.rotation, "rotate_model", reuse)
+    rotate_s = held["rotate_s"]
     held.clear()
     errs = {}
 
@@ -2187,14 +2288,17 @@ def quantize_e8p_phase(dev, prompts, held):
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
-    with mock.patch.object(P, "ldlq_quantize", measure(P.ldlq_quantize)):
+    with mock.patch.object(P, "ldlq_quantize", measure(P.ldlq_quantize)), \
+            rotate:
         qparams, quantizers = P.quantize_model(
             params, cfg, run_e8p_config(QUANT_SAMPLES), calib, device=dev,
             stats=stats)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    del params, calib
+    if E8P_LAYERS != QUANT_LAYERS:
+        rotate_s = stats["rotate_s"]
+    del params, calib, rotate
     ensure(len(errs) == 7 * E8P_LAYERS and all(
         math.isfinite(e) and e >= 0 for e in errs.values()), errs)
     ensure(len(quantizers) == 7 * E8P_LAYERS
@@ -2234,22 +2338,343 @@ def quantize_e8p_phase(dev, prompts, held):
                  "HF-ingested params of phase quantize",
         "config": "run_rsq_e8p.sh: rotate, attncon 0.005-1, LDLQ+E8P "
                   "(quip_tune_iters 10), add_until_fail",
-        "reduced": {"layers": f"{E8P_LAYERS} of 32 (phase quantize's "
-                              f"{QUANT_LAYERS} cut to keep the smoke within "
+        "reduced": {"layers": f"{E8P_LAYERS} of 32 (2 took the smoke over "
                               "its time)",
                     "nsamples": f"{QUANT_SAMPLES} of the reference's 128"},
         "calibration": f"synthetic, {QUANT_SAMPLES} x {QUANT_SEQLEN}",
-        "quantize_s": quant_s, "rotate_s": stats["rotate_s"],
+        "quantize_s": quant_s, "rotate_s": rotate_s,
+        "rotation": "phase quantize's (the same params and seed), reused"
+                    if E8P_LAYERS == QUANT_LAYERS else "its own",
         "layer_s": [st["layer_s"] for st in layers],
         "weighting_s": [st["weighting_s"] for st in layers],
         "hessian_s": [st["hessian_s"] for st in layers],
         "ldlq_s": [st["gptq_s"] for st in layers],
         "ldlq_s_by_proj": [st["gptq_s_by_proj"] for st in layers],
-        "full_depth_s_reckoned": stats["rotate_s"] + 32 * float(
+        "full_depth_s_reckoned": rotate_s + 32 * float(
             np.mean([st["layer_s"] for st in layers])),
         "quantize_peak_mem_gib": peak,
         "max_quant_error": max(errs.values()),
         "prefill_logit_corr": corr, **rec}}, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase quantize_families: OPT, Gemma-2 and Falcon at their published widths
+# ---------------------------------------------------------------------------
+
+# (constructor, layers run): 1 of falcon-7b's 32 and gemma-2-9b's 42, 2 of
+# opt-125m's 12
+FAMILY_RUNS = (("falcon_7b", 1), ("gemma2_9b", 1), ("opt_125m", 2))
+FAMILY_PROMPT, FAMILY_CHECK_LEN, FAMILY_EVAL_SEQS = 64, 32, 2
+ROTATION_REL = 1e-3
+
+
+def _perturb(params, g):
+    """Norms off their constant init (LayerNorm w 1 + 0.1 N, b 0.05 N;
+    Gemma-2's (1 + w) w 0.1 N) and OPT's linear biases 0.02 N, in place,
+    so that the ingest and the LayerNorm fusion move real values."""
+    def randn(t, s):
+        return torch.randn(t.shape, generator=g, device=t.device) * s
+
+    for tree in params["layers"] + [params]:
+        for key, val in tree.items():
+            if key.endswith("norm") and isinstance(val, dict):
+                val["w"] += randn(val["w"], 0.1)
+                val["b"] += randn(val["b"], 0.05)
+            elif key.endswith("norm") and val is not None:
+                val += randn(val, 0.1)
+            elif isinstance(val, dict) and val.get("b") is not None:
+                val["b"] += randn(val["b"], 0.02)
+
+
+def _hf_names(params, cfg):
+    """The port's params as a Hugging Face state dict of cfg's family
+    ((out, in) weights as transposed views; Falcon's q/k/v fused in the
+    multi-query layout; an lm_head.weight when untied) and a config object
+    with its model_type."""
+    def t(p):
+        return p["w"].T
+
+    def ln(sd, key, norm):
+        sd[key + ".weight"], sd[key + ".bias"] = norm["w"], norm["b"]
+
+    conf = dict(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+                num_hidden_layers=cfg.num_layers,
+                num_attention_heads=cfg.num_attention_heads,
+                max_position_embeddings=cfg.max_position_embeddings,
+                tie_word_embeddings=cfg.tie_word_embeddings)
+    sd = {}
+    if cfg.family == "falcon":
+        sd["transformer.word_embeddings.weight"] = params["embed"]
+        ln(sd, "transformer.ln_f", params["final_norm"])
+        for i, lp in enumerate(params["layers"]):
+            b = f"transformer.h.{i}."
+            ln(sd, b + "input_layernorm", lp["input_norm"])
+            sd[b + "self_attention.query_key_value.weight"] = torch.cat(
+                [t(lp["q"]), t(lp["k"]), t(lp["v"])])
+            sd[b + "self_attention.dense.weight"] = t(lp["o"])
+            sd[b + "mlp.dense_h_to_4h.weight"] = t(lp["fc1"])
+            sd[b + "mlp.dense_4h_to_h.weight"] = t(lp["fc2"])
+        conf.update(model_type="falcon", ffn_hidden_size=cfg.intermediate_size,
+                    multi_query=True, new_decoder_architecture=False,
+                    parallel_attn=True, rope_theta=cfg.rope_theta,
+                    layer_norm_epsilon=cfg.rms_norm_eps)
+    elif cfg.family == "opt":
+        sd["model.decoder.embed_tokens.weight"] = params["embed"]
+        sd["model.decoder.embed_positions.weight"] = params["embed_pos"]
+        ln(sd, "model.decoder.final_layer_norm", params["final_norm"])
+        names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                 "v": "self_attn.v_proj", "o": "self_attn.out_proj",
+                 "fc1": "fc1", "fc2": "fc2"}
+        for i, lp in enumerate(params["layers"]):
+            b = f"model.decoder.layers.{i}."
+            ln(sd, b + "self_attn_layer_norm", lp["input_norm"])
+            ln(sd, b + "final_layer_norm", lp["post_norm"])
+            for n, hf in names.items():
+                sd[f"{b}{hf}.weight"] = t(lp[n])
+                sd[f"{b}{hf}.bias"] = lp[n]["b"]
+        conf.update(model_type="opt", ffn_dim=cfg.intermediate_size,
+                    do_layer_norm_before=True,
+                    word_embed_proj_dim=cfg.hidden_size)
+    else:
+        sd["model.embed_tokens.weight"] = params["embed"]
+        sd["model.norm.weight"] = params["final_norm"]
+        names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                 "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+                 "up": "mlp.up_proj", "gate": "mlp.gate_proj",
+                 "down": "mlp.down_proj",
+                 "input_norm": "input_layernorm",
+                 "post_attn_norm": "post_attention_layernorm",
+                 "pre_ff_norm": "pre_feedforward_layernorm",
+                 "post_ff_norm": "post_feedforward_layernorm"}
+        for i, lp in enumerate(params["layers"]):
+            for n, hf in names.items():
+                sd[f"model.layers.{i}.{hf}.weight"] = \
+                    t(lp[n]) if isinstance(lp[n], dict) else lp[n]
+        conf.update(model_type="gemma2",
+                    intermediate_size=cfg.intermediate_size,
+                    num_key_value_heads=cfg.num_key_value_heads,
+                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                    rms_norm_eps=cfg.rms_norm_eps,
+                    query_pre_attn_scalar=cfg.query_pre_attn_scalar,
+                    attn_logit_softcapping=cfg.attn_logit_softcap,
+                    final_logit_softcapping=cfg.final_logit_softcap,
+                    sliding_window=cfg.sliding_window)
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = params["lm_head"].T
+    return sd, SimpleNamespace(**conf)
+
+
+def _same_tree(a, b, path=""):
+    if isinstance(a, dict):
+        ensure(isinstance(b, dict) and a.keys() == b.keys(), path)
+        for k in a:
+            _same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        ensure(isinstance(b, list) and len(a) == len(b), path)
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{path}.{i}")
+    else:
+        ensure((a is None and b is None) or torch.equal(a, b),
+               f"HF ingest: {path} differs")
+
+
+def family_hf_ingested(dev, cfg):
+    """Seeded random f32 params of cfg's family made on the card (norms
+    and OPT's biases perturbed), parked on the host, written under the
+    family's Hugging Face names and read back through config_from_hf and
+    params_from_state_dict: the config must equal cfg and every tensor
+    come back bit for bit."""
+    import dataclasses
+
+    from rsq_tpu_torch import tree_to
+    from rsq_tpu_torch.models import family
+    from rsq_tpu_torch.models.hf import config_from_hf, params_from_state_dict
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = family.init_params(cfg, g)
+    _perturb(params, g)
+    if cfg.tie_word_embeddings:          # a view of the embedding: not
+        del params["lm_head"]            # copied off the card twice
+    params = tree_to(params, "cpu")
+    if cfg.tie_word_embeddings:
+        params["lm_head"] = params["embed"].T
+    t1 = time.perf_counter()
+    sd, conf = _hf_names(params, cfg)
+    got_cfg = config_from_hf(conf)
+    ensure(dataclasses.asdict(got_cfg) == dataclasses.asdict(cfg),
+           f"config_from_hf: {got_cfg}")
+    got = params_from_state_dict(sd, got_cfg)
+    del sd
+    t2 = time.perf_counter()
+    _same_tree(got, params)
+    return got_cfg, got, {"init_s": t1 - t0, "ingest_s": t2 - t1,
+                          "compare_s": time.perf_counter() - t2}
+
+
+def family_run(dev, ctor, layers):
+    """One family at its published widths on `layers` of its layers:
+    the HF ingest (family_hf_ingested); rotation invariance (OPT, Falcon:
+    the fused, rotated, unquantized model's f32 logits on 2 prompts of
+    FAMILY_PROMPT tokens within ROTATION_REL of the largest |logit| of the
+    original's; falcon-7b's 4544 takes the random orthogonal fallback, its
+    18176 no fc2 Hadamard, its o the per-head one) or rotate_model refused
+    (Gemma-2); quantize_model in the run_rsq.sh configuration (rotated but
+    on Gemma-2; the rotation is the invariance check's, the same call),
+    QUANT_SAMPLES synthetic samples of QUANT_SEQLEN tokens: seconds per
+    stage and projection, the full depth reckoned from them, peak memory,
+    quant_error; the quantized model's W4A16 fake-quant logits on the card
+    against the CPU's on 2 prompts of FAMILY_CHECK_LEN tokens (LOGIT_MAX,
+    LOGIT_RMS std of the logits); PPL on FAMILY_EVAL_SEQS synthetic
+    sequences finite."""
+    import dataclasses
+
+    from rsq_tpu_torch import tree_to
+    from rsq_tpu_torch.core.hadamard import hadU_supported
+    from rsq_tpu_torch.eval.ppl import ppl_fullmodel
+    from rsq_tpu_torch.models import family as F
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.models.policy import FP16, QuantPolicy
+    from rsq_tpu_torch.quantize import pipeline as P
+    from rsq_tpu_torch.quantize import rotation
+    from rsq_tpu_torch.quantize.data import get_loaders
+    from rsq_tpu_torch.quantize.gptq import quant_error
+
+    full = getattr(ModelConfig, ctor)()
+    t0 = time.perf_counter()
+    cfg, params, ingest = family_hf_ingested(
+        dev, dataclasses.replace(full, num_layers=layers))
+    calib = get_loaders("synthetic", nsamples=QUANT_SAMPLES,
+                        seqlen=QUANT_SEQLEN, vocab_size=cfg.vocab_size)
+    setup_s = time.perf_counter() - t0
+    rsq = dataclasses.replace(run_rsq_config(QUANT_SAMPLES),
+                              rotate=cfg.family != "gemma2")
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, FAMILY_PROMPT)))
+    pol = QuantPolicy(online_had_down=rsq.rotate
+                      and hadU_supported(cfg.intermediate_size),
+                      online_had_o=rsq.rotate, norms_fused=rsq.rotate)
+    rec = {"model": f"{ctor} widths, {layers} of {full.num_layers} layers, "
+                    "seeded random f32 weights (torch.Generator seed 0, "
+                    "norms perturbed) read through the Hugging Face ingest",
+           "config": "run_rsq.sh: " + ("rotate, " if rsq.rotate else
+                                       "no rotation (refused), ")
+                     + "attncon 0.005-1, GPTQ W4 sym MSE clip, "
+                       "add_until_fail",
+           "reduced": {"layers": f"{layers} of {full.num_layers}",
+                       "nsamples": f"{QUANT_SAMPLES} of the reference's 128",
+                       "eval": f"{FAMILY_EVAL_SEQS} sequences of "
+                               f"{QUANT_SEQLEN} synthetic tokens"},
+           "setup_s": setup_s, "setup": ingest}
+
+    def logits(p, x, policy):
+        with torch.no_grad():
+            return F.forward(p, x, cfg, policy).float()
+
+    patch = contextlib.nullcontext()
+    if rsq.rotate:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rotated = rotation.rotate_model(params, cfg, mode=rsq.rotate_mode,
+                                        seed=rsq.rotation_seed, device=dev)
+        torch.cuda.synchronize()
+        rec["rotate_s"] = time.perf_counter() - t0
+        pdev = tree_to(params, dev)
+        base = logits(pdev, ids.to(dev), FP16)
+        del pdev
+        rdev = tree_to(rotated[0], dev)
+        err = float((logits(rdev, ids.to(dev), pol) - base).abs().max()
+                    / base.abs().max())
+        del rdev, base
+        ensure(err <= ROTATION_REL, f"{ctor}: rotated logits off by {err}")
+        rec["rotation_max_err_over_max_logit"] = err
+
+        def reuse(p, c, mode, seed, device):
+            ensure((c, mode, seed) == (cfg, rsq.rotate_mode,
+                                       rsq.rotation_seed))
+            return rotated
+        patch = mock.patch.object(rotation, "rotate_model", reuse)
+    else:
+        refused = False
+        try:
+            rotation.rotate_model(params, cfg, device=dev)
+        except NotImplementedError:
+            refused = True
+        ensure(refused, f"{ctor}: rotate_model took Gemma-2")
+        rec["rotation"] = "refused (NotImplementedError), as the reference"
+    errs = {}
+
+    def measure(fn):
+        def run(W, H, wq, cfg_, device):
+            Q, info = fn(W, H, wq, cfg_, device=device)
+            errs[len(errs)] = quant_error(W.to(Q.device), Q, H)
+            return Q, info
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    with mock.patch.object(P, "gptq_quantize", measure(P.gptq_quantize)), \
+            patch:
+        qparams, quantizers = P.quantize_model(params, cfg, rsq, calib,
+                                               device=dev, stats=stats)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, calib
+    n_lin = len(F.linear_names(cfg)) * layers
+    ensure(len(errs) == n_lin == len(quantizers) and all(
+        math.isfinite(e) and e >= 0 for e in errs.values()), errs)
+
+    qdev = tree_to(qparams, dev)
+    short = ids[:, :FAMILY_CHECK_LEN]
+    card = logits(qdev, short.to(dev), pol).cpu()
+    stream = get_loaders("synthetic", eval_mode=True, vocab_size=cfg.vocab_size
+                         )[: FAMILY_EVAL_SEQS * QUANT_SEQLEN]
+    t0 = time.perf_counter()
+    ppl = ppl_fullmodel(qdev, cfg, pol, stream, QUANT_SEQLEN,
+                        FAMILY_EVAL_SEQS, device=dev)
+    ppl_s = time.perf_counter() - t0
+    del qdev
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    cpu = logits(qparams, short, pol)
+    sd = float(cpu.std())
+    e = (card - cpu).abs()
+    ensure(bool(torch.isfinite(card).all()) and math.isfinite(ppl),
+           f"{ctor}: logits or PPL not finite ({ppl})")
+    ensure(float(e.max()) <= LOGIT_MAX * sd
+           and float(e.pow(2).mean().sqrt()) <= LOGIT_RMS * sd,
+           f"{ctor}: card vs CPU logits {float(e.max()) / sd}")
+    layer_s = [st["layer_s"] for st in stats["layers"]]
+    rotate_s = rec.get("rotate_s", 0.0)
+    rec.update({
+        "calibration": f"synthetic, {QUANT_SAMPLES} x {QUANT_SEQLEN}",
+        "quantize_s": quant_s, "layer_s": layer_s,
+        "weighting_s": [st["weighting_s"] for st in stats["layers"]],
+        "hessian_s": [st["hessian_s"] for st in stats["layers"]],
+        "gptq_s": [st["gptq_s"] for st in stats["layers"]],
+        "gptq_s_by_proj": [st["gptq_s_by_proj"] for st in stats["layers"]],
+        "full_depth_s_reckoned": rotate_s
+        + full.num_layers * float(np.mean(layer_s)),
+        "quantize_peak_mem_gib": quant_peak,
+        "peak_mem_gib_with_embed_and_lm_head": peak,
+        "max_quant_error": max(errs.values()),
+        "card_vs_cpu_max_over_std": float(e.max()) / sd,
+        "card_vs_cpu_rms_over_std": float(e.pow(2).mean().sqrt()) / sd,
+        "ppl_w4a16": ppl, "ppl_s": ppl_s})
+    return rec
+
+
+def quantize_families_phase(dev):
+    """family_run for each of FAMILY_RUNS, one at a time."""
+    out = {}
+    for ctor, layers in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        out[ctor] = family_run(dev, ctor, layers)
+        out[ctor]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return {"quantize_families": out}
 
 
 # ---------------------------------------------------------------------------
@@ -2828,9 +3253,10 @@ def main(argv):
     # phase 4: small end-to-end checks against the CPU
     t0 = time.perf_counter()
     small = small_check(dev)
+    t1 = time.perf_counter()
     small["small"]["quantization"] = small_quantize_check(dev)
     log(json.dumps(small))
-    log(f"small: {time.perf_counter() - t0:.1f} s")
+    log(f"small: {time.perf_counter() - t0:.1f} s (engines {t1 - t0:.1f} s)")
 
     # phases 5 and 6: quantize, then serve -- each path's launch counts
     # start at 0 just before it; one set of weights is live at a time (the
@@ -2850,6 +3276,11 @@ def main(argv):
     torch.cuda.empty_cache()
     run_phase("quantize_e8p", lambda: quantize_e8p_phase(dev, prompts, held))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families = quantize_families_phase(dev)
+    families["quantize_families"]["card"] = smi
+    log(json.dumps(families))
+    log(f"quantize_families: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     raw = random_serving_params(cfg, seed=0, device=dev)
     params = S.quantize_lm_head(raw)

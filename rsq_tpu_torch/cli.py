@@ -10,15 +10,17 @@ the CPU on its own).
       --rotate --add-until-fail --save <dir>
   python -m rsq_tpu_torch.cli serve --load <dir> [--attn-int8-qk]
 
-Named models (llama3-8b, llama2-7b, qwen25-7b, mistral-nemo, tiny) get
-seeded random weights; a local directory is read as a Hugging Face
-checkpoint of the Llama family (models/hf.load_hf, which needs
-transformers; nothing is fetched from the hub).  --e8p quantizes with
-LDLQ+E8P and saves the codes, and `serve` serves such a checkpoint
-weight-only (16-bit activations) on the affine-W4 kernels, the codes
-re-encoded losslessly (port-only: the reference saves no codes, ROADMAP
-section 3).  Not ported yet: the OPT / Gemma-2 / Falcon families (ROADMAP
-item 15), `longtasks` (item 16), --tp > 1 and --pp > 1 (item 17).
+Named models (NAMED: the Llama family, opt-125m, gemma2-9b/27b,
+falcon-7b/40b and the tiny-* test configs) get seeded random weights; a
+local directory is read as a Hugging Face checkpoint of any of those
+families (models/hf.load_hf, which needs transformers; nothing is fetched
+from the hub).  Gemma-2 quantizes without --rotate, as in the reference.
+--e8p quantizes with LDLQ+E8P and saves the codes, and `serve` serves such
+a checkpoint weight-only (16-bit activations) on the affine-W4 kernels,
+the codes re-encoded losslessly (port-only: the reference saves no codes,
+ROADMAP section 3).  `serve` takes the Llama family only, as the
+reference's serving does.  Not ported yet: `longtasks` (ROADMAP item 16),
+--tp > 1 and --pp > 1 (item 17).
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ def _build_parser():
     q = sub.add_parser("quantize", help="run the RSQ pipeline")
     q.add_argument("--model", default="tiny",
                    help="a named config with random weights (tiny, "
-                        "llama3-8b, llama2-7b, qwen25-7b, mistral-nemo) "
-                        "or a local Hugging Face checkpoint directory")
+                        "tiny-opt, tiny-gemma2, tiny-falcon, llama3-8b, "
+                        "llama2-7b, qwen25-7b, mistral-nemo, opt-125m, "
+                        "gemma2-9b, gemma2-27b, falcon-7b, falcon-40b) or "
+                        "a local Hugging Face checkpoint directory")
     q.add_argument("--seed", type=int, default=0)
     q.add_argument("--rotate", action="store_true")
     q.add_argument("--rotate-mode", default="hadamard",
@@ -125,7 +129,9 @@ def _build_parser():
     return p
 
 
-NAMED = ("tiny", "llama3-8b", "llama2-7b", "qwen25-7b", "mistral-nemo")
+NAMED = ("llama3-8b", "llama2-7b", "qwen25-7b", "mistral-nemo", "opt-125m",
+         "gemma2-9b", "gemma2-27b", "tiny", "tiny-opt", "tiny-gemma2",
+         "falcon-7b", "falcon-40b", "tiny-falcon")
 
 
 def _load_model(name: str, seed: int):
@@ -141,11 +147,11 @@ def _load_model(name: str, seed: int):
             return load_hf(name)
         raise NotImplementedError(
             f"model {name!r}: not a named model nor a local directory (the "
-            f"hub is not read; the OPT / Gemma-2 / Falcon families are "
-            f"ROADMAP item 15); named: {NAMED}")
+            f"hub is not read); named: {NAMED}")
     cfg = getattr(ModelConfig, name.replace("-", "_"))()
     params = family.init_params(cfg, torch.Generator().manual_seed(seed),
-                                scale=0.05 if name == "tiny" else 0.02)
+                                scale=0.05 if name.startswith("tiny")
+                                else 0.02)
     return cfg, params
 
 
@@ -255,6 +261,7 @@ def cmd_serve(a):
     import numpy as np
 
     from rsq_tpu_torch import resolve_device
+    from rsq_tpu_torch.models.family import LLAMA_FAMILY
     from rsq_tpu_torch.quantize.checkpoint import load_quantized
     from rsq_tpu_torch.serving import model as S
     from rsq_tpu_torch.serving.paged import PagedServingEngine
@@ -265,6 +272,11 @@ def cmd_serve(a):
                                   "ROADMAP item 17")
     dev = resolve_device(a.device)
     params, quantizers, cfg, manifest = load_quantized(a.load)
+    if cfg.family not in LLAMA_FAMILY:
+        raise NotImplementedError(
+            f"serve: a {cfg.family} checkpoint; rsq_tpu serves the Llama "
+            f"family only ({', '.join(LLAMA_FAMILY)}), and so does the "
+            f"port: evaluate it with `eval`")
     sparams = to_serving_params(params, quantizers, cfg, device=dev)
     e8p = any("codes" in q for q in quantizers.values())
     sc = S.ServingConfig(model=cfg, a4=not (a.no_a4 or e8p), kv_int4=True,

@@ -2,7 +2,9 @@
 stream cut into (nsamples, val_seqlen) rows, mean NLL over rows, exp.
 `ppl_fullmodel` runs the whole forward per batch with the model on the
 device; `ppl_streamed` keeps every batch's activations on the host and
-stages one layer at a time.  The pipeline-parallel `ppl_pp` waits for
+stages one layer at a time.  Both go through models/family.py, so each
+family builds its own causal mask (Gemma-2's windowed on even layers;
+OPT's learned positions instead of RoPE tables).  The pipeline-parallel `ppl_pp` waits for
 ROADMAP item 17."""
 
 from __future__ import annotations

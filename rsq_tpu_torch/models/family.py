@@ -1,31 +1,28 @@
-"""Family dispatch (the port of rsq_tpu.models.family), for the Llama
-family (llama, qwen2, mistral; named random models or a local Hugging Face
-checkpoint through models/hf.py).  OPT, Gemma-2 and Falcon are the open
-half of ROADMAP item 15: asking for one raises."""
+"""Family dispatch (the port of rsq_tpu.models.family): one call surface
+over the Llama family (llama, qwen2, mistral), OPT, Gemma-2 and Falcon.
+The family is a field of the frozen ModelConfig; `layer` carries the layer
+index to the family whose forward depends on it (Gemma-2's alternating
+sliding window), the others ignore it."""
 
 from __future__ import annotations
 
 import torch
 
-from rsq_tpu_torch.models import llama
+from rsq_tpu_torch.models import falcon, gemma2, llama, opt
 from rsq_tpu_torch.models.config import ModelConfig
 
 LLAMA_FAMILY = ("llama", "qwen2", "mistral")
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in LLAMA_FAMILY:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP item "
-            "15, its second half: OPT, Gemma-2 and Falcon); the port runs "
-            "the Llama family")
-    return llama
+    return {"opt": opt, "gemma2": gemma2, "falcon": falcon}.get(cfg.family,
+                                                                 llama)
 
 
 def groups_for(cfg: ModelConfig) -> tuple[tuple[str, ...], ...]:
-    """Sequential projection groups of the layer-wise quantization."""
-    module_for(cfg)
-    return (("q", "k", "v"), ("o",), ("up", "gate"), ("down",))
+    """Sequential projection groups of the layer-wise quantization (OPT
+    and Falcon: qkv / o / fc1 / fc2)."""
+    return module_for(cfg).GROUPS
 
 
 def linear_names(cfg: ModelConfig) -> tuple[str, ...]:
@@ -33,12 +30,16 @@ def linear_names(cfg: ModelConfig) -> tuple[str, ...]:
 
 
 def pos_tables(cfg: ModelConfig, positions: torch.Tensor):
-    """RoPE cos/sin tables."""
-    return module_for(cfg).rope_tables(cfg, positions)
+    """RoPE cos/sin tables, (None, None) for OPT's learned positions."""
+    if cfg.family == "opt":
+        return None, None
+    return llama.rope_tables(cfg, positions)
 
 
 def embed(params, input_ids, cfg: ModelConfig):
-    return module_for(cfg).embed(params, input_ids)
+    if cfg.family in ("opt", "gemma2"):
+        return module_for(cfg).embed(params, input_ids, cfg)
+    return llama.embed(params, input_ids)      # Falcon's is Llama's
 
 
 def layer_forward(lp, x, cos, sin, cfg: ModelConfig, policy, mask=None,
@@ -49,9 +50,13 @@ def layer_forward(lp, x, cos, sin, cfg: ModelConfig, policy, mask=None,
 
 def group_input(lp, x, cos, sin, cfg: ModelConfig, policy, group, mask=None,
                 layer: int = 0):
-    module_for(cfg)
-    from rsq_tpu_torch.quantize.pipeline import group_input as llama_input
-    return llama_input(lp, x, cos, sin, cfg, policy, group, mask, layer=layer)
+    mod = module_for(cfg)
+    if mod is llama:
+        from rsq_tpu_torch.quantize.pipeline import group_input as llama_input
+        return llama_input(lp, x, cos, sin, cfg, policy, group, mask,
+                           layer=layer)
+    return mod.group_input(lp, x, cos, sin, cfg, policy, group, mask,
+                           layer=layer)
 
 
 def head(params, x, cfg: ModelConfig):

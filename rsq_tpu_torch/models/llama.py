@@ -27,6 +27,7 @@ from rsq_tpu_torch.models.config import ModelConfig
 from rsq_tpu_torch.models.policy import QuantPolicy
 
 LINEAR_NAMES = ("q", "k", "v", "o", "up", "gate", "down")
+GROUPS = (("q", "k", "v"), ("o",), ("up", "gate"), ("down",))
 
 
 def rms_norm(x, weight, eps):
@@ -186,6 +187,18 @@ def _had_dtype(policy: QuantPolicy):
     return torch.float32 if policy.fp32_had else None
 
 
+def qkv_rope(lp, h, cos, sin, cfg: ModelConfig, quant=None):
+    """q and k (b, s, heads, head_dim) with RoPE and v (b, s, kv_dim) from
+    the normalized input h, `quant` on the linears' input."""
+    b, s, _ = h.shape
+    hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, \
+        cfg.num_key_value_heads
+    q = apply_rope(linear(h, lp["q"], quant).reshape(b, s, nq, hd), cos, sin)
+    k = apply_rope(linear(h, lp["k"], quant).reshape(b, s, nkv, hd), cos,
+                   sin)
+    return q, k, linear(h, lp["v"], quant)
+
+
 def attn_block(lp, h, cos, sin, cfg: ModelConfig, policy: QuantPolicy,
                mask=None, return_probs: bool = False):
     """Self-attention on the normalized input h: (output before the
@@ -193,12 +206,8 @@ def attn_block(lp, h, cos, sin, cfg: ModelConfig, policy: QuantPolicy,
     b, s, _ = h.shape
     hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, \
         cfg.num_key_value_heads
-    q = linear(h, lp["q"], policy.a).reshape(b, s, nq, hd)
-    k = linear(h, lp["k"], policy.a).reshape(b, s, nkv, hd)
-    v = act_fake_quant(linear(h, lp["v"], policy.a), policy.v).reshape(
-        b, s, nkv, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k, v = qkv_rope(lp, h, cos, sin, cfg, policy.a)
+    v = act_fake_quant(v, policy.v).reshape(b, s, nkv, hd)
     if policy.k.enabled:
         q = hadamard_transform_last(q, dtype=_had_dtype(policy))
         k = hadamard_transform_last(k, dtype=_had_dtype(policy))

@@ -2,8 +2,9 @@
 of rsq_tpu.quantize.pipeline).
 
 Each decoder layer is a param dict; the inputs of its four projection
-groups come from explicit sub-forwards, in the reference's order
-  {q, k, v} -> {o} -> {up, gate} -> {down},
+groups come from the family's explicit sub-forwards (models/family.py), in
+the reference's order
+  {q, k, v} -> {o} -> {up, gate} -> {down}   (OPT, Falcon: fc1, fc2),
 each group's Hessian taken after the groups before it were replaced by
 their quantized weights.  Memory: every weight stays parked on the host
 and one layer at a time is staged on the device, quantized and parked
@@ -70,9 +71,11 @@ class RSQConfig:
 
 def group_input(lp, x, cos, sin, cfg: ModelConfig, policy: QuantPolicy,
                 group: tuple[str, ...], mask=None, layer: int = 0):
-    """The activation that feeds `group`'s linears under the current
-    weights, taken after the online Hadamards and before any activation
-    quantizer (none is active during calibration)."""
+    """The Llama family's capture points (family.group_input dispatches
+    the others to their modules): the activation that feeds `group`'s
+    linears under the current weights, taken after the online Hadamards
+    and before any activation quantizer (none is active during
+    calibration)."""
     h = M.rms_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
     if group == ("q", "k", "v"):
         return h
@@ -80,11 +83,10 @@ def group_input(lp, x, cos, sin, cfg: ModelConfig, policy: QuantPolicy,
     hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, \
         cfg.num_key_value_heads
     dt = torch.float32 if policy.fp32_had else None
-    q = M.apply_rope(M.linear(h, lp["q"]).reshape(b, s, nq, hd), cos, sin)
-    k = M.apply_rope(M.linear(h, lp["k"]).reshape(b, s, nkv, hd), cos, sin)
-    v = M.linear(h, lp["v"]).reshape(b, s, nkv, hd)
+    q, k, v = M.qkv_rope(lp, h, cos, sin, cfg)
     attn = M.attention(q, M.repeat_kv(k, nq // nkv),
-                       M.repeat_kv(v, nq // nkv), mask).reshape(b, s, nq * hd)
+                       M.repeat_kv(v.reshape(b, s, nkv, hd), nq // nkv),
+                       mask).reshape(b, s, nq * hd)
     if policy.online_had_o:
         attn = head_mixing_hadamard(attn, head_dim=hd, dtype=dt)
     if group == ("o",):
@@ -175,7 +177,6 @@ def quantize_model(params, cfg: ModelConfig, rsq: RSQConfig, calib_ids,
     quantizer's seconds whichever it is), the device synchronized before
     each reading."""
     dev = resolve_device(device)
-    family.module_for(cfg)
     t_start = time.perf_counter()
     rng = np.random.default_rng(rsq.seed)
 

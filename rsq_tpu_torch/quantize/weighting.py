@@ -14,8 +14,9 @@ reverse -> position normalize -> min-max -> mask / truncate / bin).
 
 Samples are batched: a (b, L, d) chunk gives (b, L) weights.  attncon
 holds the chunk's (b, heads, L, L) f32 probabilities at once (4.3 GB for
-8 samples of 2048 tokens at 32 heads).  The OPT, Gemma-2 and Falcon
-branches wait for those families (ROADMAP item 15).
+8 samples of 2048 tokens at 32 heads; 9.5 GB at Falcon-7B's 71).
+attncon reads each family's own attention: its input norm, RoPE but on
+OPT, Gemma-2's scale, softcap and windowed mask on even layers.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from rsq_tpu_torch.models import gemma2 as G
 from rsq_tpu_torch.models import llama as M
 from rsq_tpu_torch.models.config import ModelConfig
-from rsq_tpu_torch.models.family import module_for
+from rsq_tpu_torch.models.opt import layer_norm
 from rsq_tpu_torch.models.policy import QuantPolicy
 
 
@@ -220,21 +222,34 @@ def kmeans(x, k: int, iters: int = 30):
 # Methods
 # ---------------------------------------------------------------------------
 
-def _attention_received(lp, x, cfg: ModelConfig, wcfg: WeightingConfig):
+def _attention_received(lp, x, cfg: ModelConfig, wcfg: WeightingConfig,
+                        layer: int = 0):
     """Attention each key receives, summed over queries and then over heads
-    in head order, from the layer's own q/k after its input norm.  x: (b,
-    L, d) -> (b, L)."""
+    in head order, from the layer's own q/k after its input norm (the
+    family's norm; RoPE but on OPT; Gemma-2's scale, softcap and the
+    layer's windowed mask).  x: (b, L, d) -> (b, L)."""
     b, L, _ = x.shape
     hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, \
         cfg.num_key_value_heads
-    h = M.rms_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
-    cos, sin = M.rope_tables(cfg, torch.arange(L, device=x.device))
-    q = M.apply_rope(M.linear(h, lp["q"]).reshape(b, L, nq, hd), cos, sin)
-    k = M.apply_rope(M.linear(h, lp["k"]).reshape(b, L, nkv, hd), cos, sin)
+    if cfg.family in ("opt", "falcon"):
+        h = layer_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
+    elif cfg.family == "gemma2":
+        h = G.rms_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
+    else:
+        h = M.rms_norm(x, lp.get("input_norm"), cfg.rms_norm_eps)
+    q = M.linear(h, lp["q"]).reshape(b, L, nq, hd)
+    k = M.linear(h, lp["k"]).reshape(b, L, nkv, hd)
+    if cfg.family != "opt":
+        cos, sin = M.rope_tables(cfg, torch.arange(L, device=x.device))
+        q, k = M.apply_rope(q, cos, sin), M.apply_rope(k, cos, sin)
     k = M.repeat_kv(k, nq // nkv)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits.mul_(scale).add_(M.causal_mask(L, x.device))
+    if cfg.family == "gemma2":
+        logits = G._softcap(logits * G._scale(cfg), cfg.attn_logit_softcap)
+        logits.add_(G._mask_for_layer(L, layer, cfg, x.device))
+    else:
+        logits.mul_(float(np.float32(1.0) / np.sqrt(np.float32(hd))))
+        logits.add_(M.causal_mask(L, x.device))
     cmask = calibration_mask(wcfg, L, nq, x.device)
     if isinstance(cmask, str):
         logits = apply_topk_to_logits(logits, wcfg.attn_length)
@@ -269,11 +284,10 @@ def compute_sample_weight(lp, x, out, token_freq, cfg: ModelConfig,
                           layer: int = 0):
     """Per-token weights for a chunk of samples: x / out (b, L, d) the
     layer's input and output, token_freq (b, L).  Returns (b, L)."""
-    module_for(cfg)
     m = wcfg.method
     t = (x if wcfg.input_or_output == "input" else out).float()
     if m == "attncon":
-        w = _attention_received(lp, x, cfg, wcfg)
+        w = _attention_received(lp, x, cfg, wcfg, layer)
     elif m == "heuristic":
         return heuristic_weight(x.shape[-2], wcfg.method_type,
                                 x.device).expand(x.shape[:-1]).clone()

@@ -1451,6 +1451,34 @@ def test_quantize_model_on_card_matches_cpu(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["opt", "gemma2", "falcon",
+                                  "falcon_two_norms"])
+def test_family_quantize_model_on_card_matches_cpu(dev, name):
+    """The OPT, Gemma-2 and Falcon tiny models under the run_rsq.sh config
+    (no rotation on Gemma-2), every GPTQ call held against the CPU's, GPTQ
+    on the CPU's W and H (chip_smoke.quantize_vs_cpu on_cpu_state)."""
+    import dataclasses
+
+    import chip_smoke as CS
+    from rsq_tpu_torch.models import family
+    from rsq_tpu_torch.models.config import ModelConfig
+    from rsq_tpu_torch.quantize.data import get_loaders
+    cfg = {"opt": ModelConfig.tiny_opt(), "gemma2": ModelConfig.tiny_gemma2(),
+           "falcon": ModelConfig.tiny_falcon(),
+           "falcon_two_norms": ModelConfig.tiny_falcon(
+               falcon_two_norms=True, num_key_value_heads=2)}[name]
+    params = family.init_params(cfg, torch.Generator().manual_seed(1),
+                                scale=0.05)
+    calib = get_loaders("synthetic", nsamples=8, seqlen=64, seed=1,
+                        vocab_size=cfg.vocab_size)
+    rsq = dataclasses.replace(CS.run_rsq_config(8),
+                              rotate=cfg.family != "gemma2")
+    n = CS.quantize_vs_cpu(dev, cfg, params, calib, rsq, on_cpu_state=True)
+    assert n["calls"] == 2 * len(family.linear_names(cfg))
+    assert n["share_one_step_off"] <= 1e-3
+
+
+@pytest.mark.cuda
 def test_prepare_hinv_at_llama3_intermediate(dev):
     """n = 14336 (Llama-3-8B's down projection), a rank-4096 H as 4096
     calibration tokens give it: the damped chain returns a finite upper

@@ -1,19 +1,21 @@
 """Hugging Face ingest of rsq_tpu_torch.models.hf against rsq_tpu.models.hf
 and against transformers itself, on tiny LlamaForCausalLM,
-Qwen2ForCausalLM and MistralForCausalLM models built in this process from
-config objects (seeded torch init; nothing is downloaded):
+Qwen2ForCausalLM, MistralForCausalLM, OPTForCausalLM, Gemma2ForCausalLM
+and FalconForCausalLM models built in this process from config objects
+(seeded torch init; nothing is downloaded):
 
 - config_from_hf field-equal to the reference's (Llama with and without
   tied embeddings and llama3 rope scaling, Qwen2 with its q/k/v biases,
-  Mistral with an explicit head_dim);
+  Mistral with an explicit head_dim, OPT, Gemma-2, and Falcon in its three
+  query_key_value layouts: falcon-7b's multi-query, MHA interleaved per
+  head, and the new decoder architecture's grouped one with two norms);
 - params_from_state_dict bit-equal to the reference's, from torch tensors
   and from numpy arrays;
 - the port's f32 forward logits within 1e-4 of the HF model's (eager
   attention);
 - load_hf of a checkpoint saved to a local directory equals from_hf_model,
   and `cli quantize --model <dir>` quantizes it;
-- OPT, Gemma-2 and Falcon configs raise (ROADMAP item 15), and so does an
-  unknown model name that is no directory."""
+- an unknown model name that is no directory raises."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -34,6 +36,9 @@ TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=112,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
             max_position_embeddings=128, rms_norm_eps=1e-5)
 LOGIT_ATOL = 1e-4
+FALCON = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+              num_attention_heads=4, parallel_attn=True, bias=False,
+              alibi=False)
 
 MODELS = {
     "llama": lambda: transformers.LlamaForCausalLM(transformers.LlamaConfig(
@@ -48,7 +53,25 @@ MODELS = {
         **TINY, rope_theta=1000000.0)),
     "mistral": lambda: transformers.MistralForCausalLM(
         transformers.MistralConfig(**TINY, head_dim=32)),
+    "opt": lambda: transformers.OPTForCausalLM(transformers.OPTConfig(
+        vocab_size=256, hidden_size=64, ffn_dim=112, num_hidden_layers=2,
+        num_attention_heads=4, max_position_embeddings=128,
+        do_layer_norm_before=True, word_embed_proj_dim=64)),
+    "gemma2": lambda: transformers.Gemma2ForCausalLM(transformers.Gemma2Config(
+        **TINY, head_dim=16, query_pre_attn_scalar=24,
+        attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+        sliding_window=8, attn_implementation="eager")),
+    "falcon": lambda: transformers.FalconForCausalLM(transformers.FalconConfig(
+        **FALCON, multi_query=True, new_decoder_architecture=False)),
+    "falcon_mha": lambda: transformers.FalconForCausalLM(
+        transformers.FalconConfig(**FALCON, multi_query=False,
+                                  new_decoder_architecture=False)),
+    "falcon_new_arch": lambda: transformers.FalconForCausalLM(
+        transformers.FalconConfig(**FALCON, num_kv_heads=2, multi_query=False,
+                                  new_decoder_architecture=True)),
 }
+FAMILY = {"llama_tied_rope_scaled": "llama", "falcon_mha": "falcon",
+          "falcon_new_arch": "falcon"}
 
 
 def build(name):
@@ -77,13 +100,19 @@ def test_config_from_hf_field_equal(hf_model):
     got = THF.config_from_hf(model.config)
     want = JHF.config_from_hf(model.config)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert got.family == {"llama_tied_rope_scaled": "llama"}.get(name, name)
+    assert got.family == FAMILY.get(name, name)
     if name == "qwen2":
         assert got.attention_bias
     if name == "mistral":
         assert got.head_dim_ == 32 and got.q_dim == 128
     if name == "llama_tied_rope_scaled":
         assert got.rope_scaling is not None and got.tie_word_embeddings
+    if name.startswith("falcon"):
+        assert (got.num_key_value_heads, got.falcon_two_norms) == {
+            "falcon": (1, False), "falcon_mha": (4, False),
+            "falcon_new_arch": (2, True)}[name]
+    if name == "gemma2":
+        assert (got.query_pre_attn_scalar, got.sliding_window) == (24.0, 8)
 
 
 @pytest.mark.parametrize("source", ["torch", "numpy"])
@@ -101,8 +130,10 @@ def test_params_from_state_dict_bit_equal(hf_model, source):
         w = np.asarray(want[k])
         assert got[k].dtype == w.dtype == np.float32, k
         np.testing.assert_array_equal(got[k], w, err_msg=k)
-    if cfg.attention_bias:
+    if cfg.family == "qwen2":
         assert "layers.0.q.b" in got and "layers.0.o.b" not in got
+    if cfg.family == "opt":
+        assert "embed_pos" in got and "layers.0.o.b" in got
 
 
 def test_forward_logits_match_transformers(hf_model):
@@ -134,13 +165,6 @@ def test_load_hf_and_cli_from_a_local_directory(tmp_path):
                     str(tmp_path / "ck")])
     assert res["device"] == "cpu"
     assert (tmp_path / "ck" / "arrays.npz").exists()
-
-
-@pytest.mark.parametrize("model_type", ["opt", "gemma2", "falcon"])
-def test_other_families_raise(model_type):
-    conf = SimpleNamespace(model_type=model_type, **TINY)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        THF.config_from_hf(conf)
 
 
 def test_config_object_without_transformers():

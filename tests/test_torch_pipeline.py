@@ -103,21 +103,15 @@ def _one_step_flips(got, want, step):
     return int(off.sum())
 
 
-@pytest.mark.parametrize("name", ["run_rsq", "gptq", "rtn", "ss_mask",
-                                  "skip_int8_down"])
-def test_quantize_model_matches_reference(model, name, monkeypatch):
-    """Each quantizer call of the port's pipeline is held against the
-    reference's call at the same place, on the same state: the port's W
-    within 1e-6 and its Hessian within 1e-5 of their largest entries, its
-    own quantized weights within rtol 1e-4, atol 1e-5 but for at most 0.1%
-    of all entries that sit one step off (a rounding tie: the reference
-    itself flips one in layer 1's o under a 1e-7 change of H).  The
-    reference's weights then go on, as the ROADMAP holds end-to-end logits
-    on identical cache state: a flipped tie moves the next groups' Hessians
-    by 1e-4 to 1e-3, and their ties cascade.  Then the same quantizer keys,
-    bits and scales (1e-5 relative), and the same weights."""
-    params, calib, _ = model
-    trsq, jrsq = _rsq_configs(name)
+def hold_quantize_model(params, cfg, jcfg, calib, trsq, jrsq, monkeypatch,
+                        on_reference_state=False):
+    """quantize_model of both packages on the same numpy params, each of
+    the port's quantizer calls held against the reference's at the same
+    place (test_quantize_model_matches_reference's rules); returns (the
+    port's params, its quantizers, the reference's params, quantizers).
+    on_reference_state: the port's quantizer runs on the reference's W and
+    H (its own held to them first), for a call whose result the reference
+    itself moves by more than one step under a 1e-7 change of H."""
     ref = []
 
     def recorder(fn):
@@ -131,7 +125,7 @@ def test_quantize_model_matches_reference(model, name, monkeypatch):
 
     monkeypatch.setattr(JP, "gptq_quantize", recorder(JP.gptq_quantize))
     monkeypatch.setattr(JP, "rtn_quantize", recorder(JP.rtn_quantize))
-    want, wq = JP.quantize_model(jtree(params), JCFG, jrsq, calib)
+    want, wq = JP.quantize_model(jtree(params), jcfg, jrsq, calib)
     calls, flips, entries = iter(ref), [0], [0]
 
     def forced(fn):
@@ -143,6 +137,10 @@ def test_quantize_model_matches_reference(model, name, monkeypatch):
                 H = args[0].numpy()
                 np.testing.assert_allclose(H, rH, rtol=0,
                                            atol=1e-5 * np.abs(rH).max())
+            if on_reference_state:
+                W = torch.from_numpy(rW)
+                args = (torch.from_numpy(rH),) + args[1:] \
+                    if rH is not None else args
             Q, info = fn(W, *args, device=device)
             flips[0] += _one_step_flips(Q.numpy(), rQ, rs)
             entries[0] += rQ.size
@@ -151,7 +149,7 @@ def test_quantize_model_matches_reference(model, name, monkeypatch):
 
     monkeypatch.setattr(TP, "gptq_quantize", forced(TP.gptq_quantize))
     monkeypatch.setattr(TP, "rtn_quantize", forced(TP.rtn_quantize))
-    got, gq = TP.quantize_model(ttree(params), CFG, trsq, calib,
+    got, gq = TP.quantize_model(ttree(params), cfg, trsq, calib,
                                 device="cpu")
     assert next(calls, None) is None
     assert flips[0] <= 1e-3 * entries[0], (flips[0], entries[0])
@@ -166,6 +164,28 @@ def test_quantize_model_matches_reference(model, name, monkeypatch):
     for k in w:
         np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+    return got, gq, want, wq
+
+
+@pytest.mark.parametrize("name", ["run_rsq", "gptq", "rtn", "ss_mask",
+                                  "skip_int8_down"])
+def test_quantize_model_matches_reference(model, name, monkeypatch):
+    """Each quantizer call of the port's pipeline is held against the
+    reference's call at the same place, on the same state: the port's W
+    within 1e-6 and its Hessian within 1e-5 of their largest entries, its
+    own quantized weights within rtol 1e-4, atol 1e-5 but for at most 0.1%
+    of all entries that sit one step off (a rounding tie: the reference
+    itself flips one in layer 1's o under a 1e-7 change of H).  The
+    reference's weights then go on, as the ROADMAP holds end-to-end logits
+    on identical cache state: a flipped tie moves the next groups'
+    Hessians by 1e-4 to 1e-3, and their ties cascade.  Then the same
+    quantizer keys, bits and scales (1e-5 relative), and the same
+    weights."""
+    params, calib, _ = model
+    trsq, jrsq = _rsq_configs(name)
+    got, gq, _, _ = hold_quantize_model(params, CFG, JCFG, calib, trsq, jrsq,
+                                        monkeypatch)
+    g = leaves(got)
     if name == "skip_int8_down":
         assert "layers.0.q" not in gq and gq["layers.1.down"]["bits"] == 8
         np.testing.assert_array_equal(g["layers.0.q.w"],
